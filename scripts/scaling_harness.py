@@ -1,4 +1,4 @@
-"""Virtual-device scaling harness (VERDICT r1 item 5).
+"""Virtual-device scaling harness.
 
 Measures the two things that determine multi-chip scaling efficiency for
 the ray-tile-sharded renderer without needing real chips:
@@ -59,13 +59,13 @@ def main():
                               per_device_iters=[int(s) for s in shard],
                               balance=round(float(bal), 4))), flush=True)
 
-    # same balance metric through the PRODUCTION (wavefront) engine —
-    # its per-ray iteration counts differ (supercell skips, L0 march)
+    # same balance metric through the production traversal — its
+    # per-ray iteration counts are DDA steps, not ESVO rounds
     from svo_raytracer_tpu.ops import brick_scene, render_wave, wavefront
 
     wsc = wavefront.prepare(brick_scene.brickify(build_np.build_octree_np(v)))
     _, _, w_iters = render_wave.render_frame_wavefront(
-        wsc, cam5, W, H, render_mode=2, interpret=True, use_static=False)
+        wsc, cam5, W, H, render_mode=2)
     w_iters = np.asarray(w_iters)
     for n in (1, 2, 4, 8):
         shard = w_iters.reshape(n, H // n, W).sum(axis=(1, 2)).astype(float)

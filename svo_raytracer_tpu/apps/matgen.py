@@ -14,7 +14,7 @@ import sys
 import numpy as np
 
 from ..core import materials
-from ..io.image import read_png, write_png
+from ..io.image import encode_png, read_png, write_png
 
 
 def bake(size: int = 8192, asset_dir: str = "./assets",
@@ -39,9 +39,8 @@ def bake(size: int = 8192, asset_dir: str = "./assets",
         combined[sat[:size, :size]] = mat.value
     if out_path is None:
         out_path = f"{asset_dir}/matmaps/nz/materials.png"
-    from PIL import Image
-
-    Image.fromarray(combined).save(out_path)
+    with open(out_path, "wb") as f:
+        f.write(encode_png(combined))
     vis = (combined.astype(np.float32) * 16 / 255.0)
     write_png(out_path.replace(".png", "_vis.png"),
               np.repeat(vis[:, :, None], 3, axis=2), flip=False)

@@ -28,6 +28,23 @@ from . import input as input_mod
 from .app import Application
 
 
+def auto_engine(tree: Octree) -> str:
+    """The production brick traversal wherever it applies: worlds of at
+    least one brick (32^3) whose brick scene it can index in int32
+    (ops/wavefront.check_index_range); the ESVO walk otherwise."""
+    from ..ops import brick_scene, wavefront
+
+    if tree.world_size < brick_scene.BRICK:
+        return "esvo"
+    G = tree.world_size // brick_scene.BRICK
+    capacity = wavefront.default_capacity(brick_scene.count_mixed(tree))
+    try:
+        wavefront.check_index_range(capacity, G)
+    except ValueError:
+        return "esvo"
+    return "wavefront"
+
+
 class Viewer(Application):
     def __init__(self, tree: Octree, width=480, height=270, out_dir=".",
                  commands=None, interactive=False, use_beam=False,
@@ -45,12 +62,7 @@ class Viewer(Application):
         self.cam = Camera(pos=np.array([1.5, 1.5, 2.0]))
         self.speed = 0.02
         if engine == "auto":
-            # the wavefront engine covers 32^3..2048^3 (G<=64; the G>32
-            # serve-loop slot lookup decodes the packed16 SMEM map,
-            # ops/wavefront._slot_of — proven on-chip by the 2048^3 NZ
-            # renders, .tpu_jobs/092, 130)
-            engine = ("wavefront" if tree.world_size >= 32
-                      and tree.world_size <= 2048 else "esvo")
+            engine = auto_engine(tree)
         self.engine = engine
         self._accum = None      # progressive mode-0 accumulation buffer
         self._accum_n = 0
@@ -157,8 +169,8 @@ class Viewer(Application):
         self.tree_host = new_tree
         self.device_tree.ranged_update(new_tree, cb)
         if self.engine == "wavefront":
-            # incremental re-brick of only the touched cells — a full
-            # brickify is ~96 s at 1024^3 (PERF_NOTES.md)
+            # incremental re-brick of only the touched cells instead of
+            # a full brickify of the world
             from ..ops import brick_scene, wavefront
 
             patch = brick_scene.brickify_patch(new_tree, self.brick_host,
@@ -258,7 +270,8 @@ def main(argv=None):
     ap.add_argument("--beam", action="store_true")
     ap.add_argument("--engine", default="auto",
                     choices=("auto", "wavefront", "esvo"),
-                    help="traversal engine (auto: wavefront for 32..1024^3)")
+                    help="traversal engine (auto: wavefront wherever its "
+                    "attribute index fits in int32)")
     ap.add_argument("--cpu", action="store_true", help="pin jax to CPU")
     args = ap.parse_args(argv)
 
@@ -266,6 +279,9 @@ def main(argv=None):
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+    from ..utils import compile_cache
+
+    compile_cache.enable()
 
     if args.svo:
         tree = svo_format.read_svo_file(args.svo)

@@ -2,7 +2,7 @@
 
 The reference builds each chunk's octree with a recursive CPU scan over the
 dense voxel grid (``src/engine/Octree.java:511-670``), O(size^3) re-scans per
-node, parallelized with 8 host threads (``OctreeThread.java``).  The TPU-native
+node, parallelized with 8 host threads (``OctreeThread.java``).  The device
 re-design (SURVEY.md §7 delta 3) is a *level-synchronous* build:
 
   Phase A — bottom-up statistics, one fused pass per level: per-cell
@@ -15,11 +15,10 @@ re-design (SURVEY.md §7 delta 3) is a *level-synchronous* build:
     children of rank-r branch occupy slots base + 8r .. base + 8r + 7, and
     per-level masked scatters emit value/mask/normal/child arrays.
 
-TPU layout note: shapes with tiny trailing dims (e.g. the naive
-``(n,2,n,2,n,2)`` pooling reshape) explode under the (8,128) tile layout —
-a 512^3 build OOMs at 32 GB.  Everything here sticks to layout-safe
-primitives: strided ``lax.slice`` reads for octant subsets and
-``lax.pad``-with-interior-padding sums for octant interleaves.
+Layout note: the octant folds avoid reshapes with tiny trailing dims (the
+naive ``(n,2,n,2,n,2)`` pooling reshape); they use strided ``lax.slice``
+reads for octant subsets and ``lax.pad``-with-interior-padding sums for
+octant interleaves.
 
 Semantics are bit-equal to the NumPy oracle (``build_np.py``) — including the
 reference's corner-probe exposure quirk — and the emitted graph serializes to

@@ -1,4 +1,4 @@
-"""Sparse-voxel-octree node table — the TPU-native octree representation.
+"""Sparse-voxel-octree node table — the device-side octree representation.
 
 The reference stores a pointer-compressed SVO in one flat big-endian byte
 buffer with *variable-size* nodes (7/3/1 bytes; ``src/engine/Octree.java:68-95``)
@@ -127,8 +127,7 @@ class Octree:
 
         The packed word folds each node's 2-bit type tag into its own slot
         via 8 scatters over the full table — O(N) work that must happen once
-        per *scene*, not once per frame (16M-node worlds spend seconds in
-        scatter on TPU).  Pass the result to render/intersect calls as
+        per *scene*, not once per frame.  Pass the result to render/intersect calls as
         ``packed=``; invalidated by edits (core/sdf.py returns new tables).
         """
         if getattr(self, "_packed", None) is None:

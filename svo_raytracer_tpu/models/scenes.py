@@ -138,13 +138,12 @@ def _fractal_heightmap(size: int, octaves: int = 6, seed: int = 9):
 
 
 def scene_5_brick(scale: float = 1.0, heightmap=None, matmap=None):
-    """Scene 5 on the PRODUCTION path: the 8192^3 world built directly
-    as a BrickScene (models/bigworld.py) for the paged-L0 wavefront
-    engine — the layout that actually runs at native scale (the octree
-    scene_5 exists for pipeline parity; its chunked device build is
-    hours at 8192^3).  Returns (BrickScene, Camera, RenderConfig).
-    Render with ``wavefront.prepare(scene, attr16=True)`` — int16 attrs
-    are the only layout that fits 8192^3 in HBM (VERDICT r4).
+    """Scene 5 built directly as a BrickScene (models/bigworld.py) for
+    the production traversal — the octree scene_5 exists for pipeline
+    parity; its chunked device build scales with the world's volume.
+    Returns (BrickScene, Camera, RenderConfig).  ``wavefront.prepare``
+    accepts scales whose attribute table fits int32 indexing; the full
+    8192^3 scale does not (ROADMAP).
 
     heightmap: optional (size, size) uint16 array or 16-bit PNG path
     (e.g. the reference's assets/heightmaps/nz.png upsampled); defaults

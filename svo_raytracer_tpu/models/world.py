@@ -70,7 +70,7 @@ def chunk_layout(world_size: int, chunk_size: int):
 
 
 def splice_chunk(world: Octree, chunk_slot: int, chunk: Octree) -> Octree:
-    """Graft a chunk tree under ``chunk_slot`` — the TPU-native version of the
+    """Graft a chunk tree under ``chunk_slot`` — the array version of the
     byte-buffer splice at Octree.java:317-343 (append + pointer remap)."""
     chunk = chunk.to_numpy()
     offset = world.n_nodes
@@ -201,3 +201,46 @@ def build_world_sharded(world_size: int, chunk_size: int,
         if verbose:
             print(f"chunk group {g0 // n_dev}: world total {world.n_nodes}")
     return world
+
+
+def build_terrain(world_size: int = 1024, chunk_size: int = 512,
+                  seed: int = 0, chunk_capacity: int = 1 << 24) -> Octree:
+    """The headline procedural-terrain world (benchmarks.md:5): Perlin
+    terrain chunks generated and built on the device, the terrain band
+    centred at y=0 like the reference's rootPos (0,-1024,0).  ``seed``
+    selects which stretch of the (deterministic) terrain is built: it
+    shifts the world by ``seed`` world widths along x."""
+    import jax.numpy as jnp
+
+    from . import procgen
+
+    def gen(origin):
+        return procgen.generate_chunk(jnp.asarray(origin, jnp.int32),
+                                      chunk_size=chunk_size)
+
+    return build_world(world_size, chunk_size, gen,
+                       chunk_capacity=chunk_capacity,
+                       world_offset=(seed * world_size, -world_size // 2, 0))
+
+
+def terrain_camera(wscene):
+    """A camera just above the terrain surface, looking down-range: probe
+    25 downward rays and stand over the clearest column (host Camera)."""
+    import jax.numpy as jnp
+
+    from ..ops import wavefront
+    from ..utils.camera import Camera
+
+    gx = np.linspace(1.2, 1.8, 5, dtype=np.float32)
+    pxz = np.stack(np.meshgrid(gx, gx, indexing="ij"), -1).reshape(-1, 2)
+    o = np.concatenate([pxz[:, :1], np.full((25, 1), 1.999, np.float32),
+                        pxz[:, 1:]], axis=1)
+    d = np.tile(np.asarray([[0.0, -1.0, 0.0]], np.float32), (25, 1))
+    res = wavefront.intersect(wscene, jnp.asarray(o), jnp.asarray(d))
+    ts = np.asarray(res.t)   # 0 where a column misses
+    best = int(np.argmax(ts))
+    surf_y = 1.999 - float(ts[best])
+    cam = Camera(pos=np.array([o[best, 0], min(surf_y + 0.05, 1.99),
+                               o[best, 2]]))
+    cam.rotate(-0.35, 0.4)
+    return cam

@@ -1,49 +1,13 @@
-"""VMEM-resident occupancy-grid DDA — Pallas TPU kernels.
+"""Occupancy-grid packing for the brick traversal (host NumPy).
 
-Why this exists: the ESVO stack traversal (ops/traverse.py) spends one
-random HBM gather per ray-step, and XLA:TPU gathers into a multi-MB table
-run at ~0.1 G elem/s (.bench_cache/tune_staged.jsonl) — the whole frame is
-gather-bound.  The escape hatch on this hardware is keeping the hot loop's
-working set in VMEM.
-
-Mosaic gather constraint (measured on-chip, r1): ``take_along_axis`` lowers
-only when the index array's shape equals the table's shape — an (8,128)
-index into a (V,128) table is REJECTED (lowering.py asserts
-``indices.shape == table.shape + (1,)``).  The legal building block is the
-same-shape lane gather ``x[i, idx[i,j]]`` on one (8,128) vreg.  So the grid
-table is stored as (V/128, 128) word rows and fetched with a **composite
-fetch**: every row is sublane-broadcast once (loop-invariant), each step
-lane-gathers all rows at ``word & 127`` and selects by ``word >> 7``.
-Cost per step = rows lane-gathers + rows-1 selects, so keep V <= 1024
-(G <= 32: one word of 32 z-bits per (x,y) column -> 8 rows).
-
-This module provides the building blocks of the brick-wavefront traversal
-(the TPU-native re-expression of the reference's per-pixel octree walk,
-svotrace.comp:211-432):
-
-* :func:`pack_occupancy` — pack a G^3 voxel occupancy grid into z-packed
-  u32 words.
-* :func:`coarse_dda` — amanatides-woo 3-D DDA over that grid: each ray
-  marches cell-by-cell entirely in registers/VMEM and reports the first
-  solid cell and its entry distance.  Rays starting outside the grid are
-  advanced to the grid's entry face first.
-
-Semantics note: full-depth DDA visits exactly the voxels the ESVO
-traversal visits at max_depth == log2(G) on the same occupancy, so hits
-and entry distances agree with the oracle (tests/test_brick_dda.py);
-iteration *counts* differ by design (DDA has no PUSH/POP).
+The brick-grid level of the traversal (ops/brick_trace.py,
+ops/wavefront.py) probes one bit per brick cell: the grid is stored as
+z-packed 32-bit words, one column of 32 z-cells per word.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
-import jax.numpy as jnp
 import numpy as np
-
-i32 = jnp.int32
-f32 = jnp.float32
 
 LANES = 128
 
@@ -64,193 +28,11 @@ def pack_occupancy(vox: np.ndarray) -> np.ndarray:
     return words.reshape(-1).view(np.int32)
 
 
-def table_rows(words) -> jax.Array:
-    """(V,) packed words -> (V/128, 128) row-major device table (the
-    composite-fetch VMEM layout; V is zero-padded to a multiple of 128)."""
-    w = jnp.asarray(words, i32)
-    V = w.shape[0]
-    pad = (-V) % LANES
+def table_rows(words) -> np.ndarray:
+    """(V,) packed words -> (ceil(V/128), 128) int32 rows, zero-padded
+    (the BrickScene.l0_table layout; flattened, word order is kept)."""
+    w = np.asarray(words, np.int32)
+    pad = (-w.shape[0]) % LANES
     if pad:
-        w = jnp.pad(w, (0, pad))
+        w = np.pad(w, (0, pad))
     return w.reshape(-1, LANES)
-
-
-# kept for callers that built the old lane-replicated layout
-def replicate_lanes(words) -> jax.Array:
-    """Deprecated alias of :func:`table_rows` (layout changed after the
-    on-chip Mosaic gather constraint was discovered)."""
-    return table_rows(words)
-
-
-def _dda_kernel(G, W, max_steps, tab_ref, ox_ref, oy_ref, oz_ref,
-                dx_ref, dy_ref, dz_ref, act_ref,
-                hit_ref, t_ref, cx_ref, cy_ref, cz_ref, steps_ref):
-    """One (8,128) ray tile against the full VMEM-resident grid."""
-    n_rows = tab_ref.shape[0]
-    # loop-invariant: every table row broadcast across the 8 sublanes
-    rows = [jnp.broadcast_to(tab_ref[r:r + 1, :], (8, LANES))
-            for r in range(n_rows)]
-
-    def fetch(w):
-        lane = w & (LANES - 1)
-        r = w >> 7
-        cands = [jnp.take_along_axis(rows[k], lane, axis=1)
-                 for k in range(n_rows)]
-        out = cands[0]
-        for k in range(1, n_rows):
-            out = jnp.where(r == k, cands[k], out)
-        return out
-
-    ox, oy, oz = ox_ref[:], oy_ref[:], oz_ref[:]
-    dx, dy, dz = dx_ref[:], dy_ref[:], dz_ref[:]
-    eps = np.float32(1e-4)  # lock-step with ops/wavefront._DIR_EPS
-    dx = jnp.where(jnp.abs(dx) < eps, jnp.where(dx >= 0, eps, -eps), dx)
-    dy = jnp.where(jnp.abs(dy) < eps, jnp.where(dy >= 0, eps, -eps), dy)
-    dz = jnp.where(jnp.abs(dz) < eps, jnp.where(dz >= 0, eps, -eps), dz)
-    inv_x, inv_y, inv_z = 1.0 / dx, 1.0 / dy, 1.0 / dz
-
-    # advance rays starting outside [0,G]^3 to the box entry (slab test)
-    gf = np.float32(G)
-    t1x, t2x = (0.0 - ox) * inv_x, (gf - ox) * inv_x
-    t1y, t2y = (0.0 - oy) * inv_y, (gf - oy) * inv_y
-    t1z, t2z = (0.0 - oz) * inv_z, (gf - oz) * inv_z
-    t_ent = jnp.maximum(jnp.maximum(jnp.minimum(t1x, t2x),
-                                    jnp.minimum(t1y, t2y)),
-                        jnp.minimum(t1z, t2z))
-    t_exit = jnp.minimum(jnp.minimum(jnp.maximum(t1x, t2x),
-                                     jnp.maximum(t1y, t2y)),
-                         jnp.maximum(t1z, t2z))
-    t0 = jnp.maximum(t_ent, 0.0)
-    misses_box = (t_ent > t_exit) | (t_exit < 0.0)
-    # nudge inside the entry cell; rays already inside keep their origin
-    push = t0 + np.float32(1e-4)
-    px = ox + jnp.where(t0 > 0.0, push, 0.0) * dx
-    py = oy + jnp.where(t0 > 0.0, push, 0.0) * dy
-    pz = oz + jnp.where(t0 > 0.0, push, 0.0) * dz
-    base_t = jnp.where(t0 > 0.0, push, 0.0)
-
-    ix = jnp.clip(px.astype(i32), 0, G - 1)
-    iy = jnp.clip(py.astype(i32), 0, G - 1)
-    iz = jnp.clip(pz.astype(i32), 0, G - 1)
-    sx = jnp.where(dx > 0, i32(1), i32(-1))
-    sy = jnp.where(dy > 0, i32(1), i32(-1))
-    sz = jnp.where(dz > 0, i32(1), i32(-1))
-    nx = jnp.where(dx > 0, ix + 1, ix).astype(f32)
-    ny = jnp.where(dy > 0, iy + 1, iy).astype(f32)
-    nz = jnp.where(dz > 0, iz + 1, iz).astype(f32)
-    tx = base_t + (nx - px) * inv_x
-    ty = base_t + (ny - py) * inv_y
-    tz = base_t + (nz - pz) * inv_z
-    adx, ady, adz = jnp.abs(inv_x), jnp.abs(inv_y), jnp.abs(inv_z)
-
-    alive0 = (act_ref[:] != 0) & ~misses_box
-    t_init = jnp.where(alive0, base_t, 0.0)
-
-    # NOTE: loop carries must be i32/f32 vectors — Mosaic fails to
-    # legalize scf.for with vector<8x128xi1> block arguments (measured
-    # on-chip: "failed to legalize operation 'scf.for'"), so the hit and
-    # alive masks ride as int32 0/1.
-    alive0_i = alive0.astype(i32)
-
-    def body(_, c):
-        ix, iy, iz, tx, ty, tz, hit_i, t, steps = c
-        inside = ((ix >= 0) & (ix < G) & (iy >= 0) & (iy < G)
-                  & (iz >= 0) & (iz < G))
-        act = (alive0_i != 0) & inside & (hit_i == 0)
-        czp = jnp.clip(iz, 0, G - 1)
-        w = ((jnp.clip(ix, 0, G - 1) * G + jnp.clip(iy, 0, G - 1)) * W
-             + (czp >> 5))
-        word = fetch(w)
-        solid = ((word >> (czp & 31)) & 1) != 0
-        new_hit = act & solid
-        hit_i = hit_i | new_hit.astype(i32)
-        act = act & ~new_hit
-        steps = steps + act.astype(i32)
-        mx = (tx <= ty) & (tx <= tz)
-        my = ~mx & (ty <= tz)
-        mz = ~mx & ~my
-        tcur = jnp.minimum(jnp.minimum(tx, ty), tz)
-        t = jnp.where(act, tcur, t)
-        ix = jnp.where(act & mx, ix + sx, ix)
-        iy = jnp.where(act & my, iy + sy, iy)
-        iz = jnp.where(act & mz, iz + sz, iz)
-        tx = jnp.where(act & mx, tx + adx, tx)
-        ty = jnp.where(act & my, ty + ady, ty)
-        tz = jnp.where(act & mz, tz + adz, tz)
-        return (ix, iy, iz, tx, ty, tz, hit_i, t, steps)
-
-    c = (ix, iy, iz, tx, ty, tz, jnp.zeros(ox.shape, i32), t_init,
-         jnp.zeros(ox.shape, i32))
-    c = jax.lax.fori_loop(0, max_steps, body, c)
-    ix, iy, iz, tx, ty, tz, hit_i, t, steps = c
-    hit_ref[:] = hit_i
-    # a hit ray's t is the ENTRY distance of the solid cell: the last
-    # crossing before the hit, tracked in t (base_t if hit in entry cell)
-    t_ref[:] = t
-    cx_ref[:] = ix
-    cy_ref[:] = iy
-    cz_ref[:] = iz
-    steps_ref[:] = steps
-
-
-@functools.partial(jax.jit, static_argnames=("grid_size", "max_steps",
-                                             "interpret"))
-def coarse_dda(occ_table, origins, dirs, grid_size, max_steps=None,
-               active=None, interpret=None):
-    """March rays through a G^3 occupancy grid held in VMEM.
-
-    occ_table: (V/128, 128) int32 from table_rows(pack_occupancy(vox)).
-    origins/dirs: (B, 3) float32 in GRID units ([0,G]^3 cube).
-    Returns dict with (B,) fields: hit (bool), t (f32, grid units — entry
-    distance of the hit cell), cell (B,3) i32, steps (i32).
-
-    G <= 32 keeps the composite fetch at 8 lane-gathers/step; G = 64 works
-    but costs 64 gathers/step.
-    """
-    G = grid_size
-    W = -(-G // 32)
-    if max_steps is None:
-        max_steps = 3 * G
-    B = origins.shape[0]
-    pad = (-B) % (8 * LANES)
-    R = (B + pad) // LANES
-
-    def shape2(a):
-        return jnp.pad(a.astype(f32), (0, pad)).reshape(R, LANES)
-
-    o = origins.astype(f32)
-    d = dirs.astype(f32)
-    ox, oy, oz = shape2(o[:, 0]), shape2(o[:, 1]), shape2(o[:, 2])
-    dx, dy, dz = shape2(d[:, 0]), shape2(d[:, 1]), shape2(d[:, 2])
-    if active is None:
-        act = (jnp.arange(R * LANES, dtype=i32) < B).astype(i32)
-        act = act.reshape(R, LANES)
-    else:
-        act = jnp.pad(active.astype(i32), (0, pad)).reshape(R, LANES)
-
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    kern = functools.partial(_dda_kernel, G, W, max_steps)
-    outs = pl.pallas_call(
-        kern, interpret=interpret,
-        grid=(R // 8,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)]
-        + [pl.BlockSpec((8, LANES), lambda i: (i, 0),
-                        memory_space=pltpu.VMEM)] * 7,
-        out_specs=tuple(pl.BlockSpec((8, LANES), lambda i: (i, 0),
-                                     memory_space=pltpu.VMEM)
-                        for _ in range(6)),
-        out_shape=(jax.ShapeDtypeStruct((R, LANES), jnp.int32),
-                   jax.ShapeDtypeStruct((R, LANES), jnp.float32),
-                   jax.ShapeDtypeStruct((R, LANES), jnp.int32),
-                   jax.ShapeDtypeStruct((R, LANES), jnp.int32),
-                   jax.ShapeDtypeStruct((R, LANES), jnp.int32),
-                   jax.ShapeDtypeStruct((R, LANES), jnp.int32)),
-    )(occ_table, ox, oy, oz, dx, dy, dz, act)
-    hit, t, cx, cy, cz, steps = (a.reshape(-1)[:B] for a in outs)
-    return dict(hit=hit != 0, t=t,
-                cell=jnp.stack([cx, cy, cz], axis=-1), steps=steps)

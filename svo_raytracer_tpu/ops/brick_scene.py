@@ -1,18 +1,15 @@
 """Brick decomposition of the octree — the scene format of the
-brick-wavefront traversal (PERF_NOTES.md).
+production traversal (ops/wavefront.py) and its XLA reference
+(ops/brick_trace.py).
 
-The ESVO stack walk (ops/traverse.py) is HBM-gather-bound on TPU: one
-random node fetch per ray-step at ~0.1 G elem/s.  The brick-wavefront
-path re-expresses the reference's octree traversal
+Re-expresses the reference's octree traversal
 (src/shaders/svotrace.comp:211-432) as DDA marches over *dense* brick
-payloads whose working set lives in VMEM:
+payloads:
 
-  * an L0 occupancy grid of (world/32)^3 brick cells — resident in VMEM
-    for the whole frame (<= 4 KB at 1024^3);
+  * an L0 occupancy grid of (world/32)^3 brick cells (4 KB at 1024^3);
   * per *mixed* brick (one containing leaves smaller than the brick): a
-    32^3 occupancy bitfield (4 KB -> one (8,128) i32 vreg block) and a
-    32^3 per-voxel attribute table (128 KB), DMA'd HBM->VMEM per ray
-    group;
+    32^3 occupancy bitfield (1024 words, 4 KB) and a 32^3 per-voxel
+    attribute table (128 KB);
   * *uniform* bricks (fully covered by one leaf — air or solid) carry a
     single attribute word and need no payload at all.
 
@@ -38,7 +35,7 @@ import numpy as np
 from ..utils import constants as C
 from . import brick_dda
 
-BRICK = 32  # voxels per brick edge; 32^3 bits == one (8,128) i32 block
+BRICK = 32  # voxels per brick edge; 32^3 occupancy bits == 1024 words
 
 
 @dataclasses.dataclass
@@ -48,7 +45,7 @@ class BrickScene:
     world_size: int          # voxel resolution of the world cube [1,2]^3
     grid_size: int           # bricks per edge (world_size // 32)
     n_mixed: int
-    l0_table: Any            # (rows,128) i32 — packed brick-occupancy words
+    l0_table: Any            # (rows,128) i32 — z-packed brick-occupancy words
     brick_slot: Any          # (G^3,) i32 — mixed-brick slot, -1 if uniform
     brick_attr: Any          # (G^3,) i32 — uniform attr (value 0 => air)
     occ_words: Any           # (n_mixed, 8, 128) i32 — 32^3 occupancy bits
@@ -148,17 +145,16 @@ def occupancy_words(attrs, brick: int = BRICK):
     return w.reshape(n, 8, 128).view(np.int32)
 
 
-def brickify(tree, brick: int = BRICK) -> BrickScene:
-    """Decompose an Octree (host SoA) into the brick scene format.
+def _host_tables(tree):
+    n = tree.n_nodes
+    return tuple(np.asarray(a[:n]).astype(np.int64)
+                 for a in (tree.child, tree.mask, tree.value, tree.normal))
 
-    The descent mirrors the child addressing of the SoA table (child base +
-    octant k; tag = 2 bits of the parent's mask, Octree.java:589-599).
-    Worlds smaller than one brick are rejected — use the ESVO path there.
-    """
-    child = np.asarray(tree.child[:tree.n_nodes]).astype(np.int64)
-    mask = np.asarray(tree.mask[:tree.n_nodes]).astype(np.int64)
-    value = np.asarray(tree.value[:tree.n_nodes]).astype(np.int64)
-    normal = np.asarray(tree.normal[:tree.n_nodes]).astype(np.int64)
+
+def _brick_level(tree, child, mask, value, normal, brick: int):
+    """Pass 1 of :func:`brickify`: descend to brick level.  Returns
+    (uniform attr per brick cell, mixed cells, their subtree roots,
+    brick depth below the root)."""
     ws = tree.world_size
     if ws % brick or ws < brick:
         raise ValueError(f"world_size {ws} not a multiple of brick {brick}")
@@ -168,7 +164,6 @@ def brickify(tree, brick: int = BRICK) -> BrickScene:
         return _leaf_attr(value, normal, mask, nodes, tags,
                           np.full(nodes.shape, depth, np.int64))
 
-    # ---- pass 1: descend to brick level --------------------------------
     uni = np.zeros(G * G * G, np.int64)       # uniform attr per brick cell
     mixed_cell: list[np.ndarray] = []         # flat brick cell ids
     mixed_node: list[np.ndarray] = []         # subtree roots (branch nodes)
@@ -196,7 +191,7 @@ def brickify(tree, brick: int = BRICK) -> BrickScene:
         if leaf.any():
             sb = span // brick
             attr = leaf_attr(nodes[leaf], tags[leaf], depth)
-            bx, by, bz = xs[leaf] // 1, ys[leaf], zs[leaf]
+            bx, by, bz = xs[leaf], ys[leaf], zs[leaf]
             off = np.arange(sb, dtype=np.int64)
             # flat cells of the sb^3 block per leaf
             cx = (bx[:, None] + off[None, :])            # (L, sb)
@@ -206,24 +201,40 @@ def brickify(tree, brick: int = BRICK) -> BrickScene:
                      + cz[:, None, None, :]).reshape(len(attr), -1)
             uni[cells.reshape(-1)] = np.repeat(attr, sb * sb * sb)
         if not is_branch.any():
-            mixed_cell.append(np.zeros(0, np.int64))
-            mixed_node.append(np.zeros(0, np.int64))
             break
         bn = nodes[is_branch]
         bx, by, bz = xs[is_branch], ys[is_branch], zs[is_branch]
         nodes = (child[bn][:, None] + k[None, :]).reshape(-1)
         tags = ((mask[bn][:, None] >> (2 * k[None, :])) & 3).reshape(-1)
-        half = (span // brick) // 2 if span > brick else 0
+        half = (span // brick) // 2
         xs = (bx[:, None] + (k[None, :] & 1) * half).reshape(-1)
         ys = (by[:, None] + ((k[None, :] >> 1) & 1) * half).reshape(-1)
         zs = (bz[:, None] + ((k[None, :] >> 2) & 1) * half).reshape(-1)
         span //= 2
         depth += 1
 
-    mixed_cell = np.concatenate(mixed_cell) if mixed_cell else np.zeros(0, np.int64)
-    mixed_node = np.concatenate(mixed_node) if mixed_node else np.zeros(0, np.int64)
+    empty = np.zeros(0, np.int64)
+    return (uni, np.concatenate(mixed_cell) if mixed_cell else empty,
+            np.concatenate(mixed_node) if mixed_node else empty, depth)
+
+
+def count_mixed(tree, brick: int = BRICK) -> int:
+    """Mixed bricks :func:`brickify` would make, without rasterizing."""
+    return len(_brick_level(tree, *_host_tables(tree), brick)[1])
+
+
+def brickify(tree, brick: int = BRICK) -> BrickScene:
+    """Decompose an Octree (host SoA) into the brick scene format.
+
+    The descent mirrors the child addressing of the SoA table (child base +
+    octant k; tag = 2 bits of the parent's mask, Octree.java:589-599).
+    Worlds smaller than one brick are rejected — use the ESVO path there.
+    """
+    child, mask, value, normal = _host_tables(tree)
+    uni, mixed_cell, mixed_node, brick_depth = _brick_level(
+        tree, child, mask, value, normal, brick)
+    G = tree.world_size // brick
     n_mixed = len(mixed_cell)
-    brick_depth = depth  # depth of brick-level nodes below root
 
     slot_map = np.full(G * G * G, -1, np.int32)
     slot_map[mixed_cell] = np.arange(n_mixed, dtype=np.int32)
@@ -237,12 +248,12 @@ def brickify(tree, brick: int = BRICK) -> BrickScene:
     occ_words = occupancy_words(attrs, brick)
 
     l0_occ = ((uni & 0xFF) != 0) | (slot_map >= 0)
-    l0_table = np.asarray(brick_dda.table_rows(
-        brick_dda.pack_occupancy(l0_occ.reshape(G, G, G))))
+    l0_table = brick_dda.table_rows(
+        brick_dda.pack_occupancy(l0_occ.reshape(G, G, G)))
 
     return BrickScene(
-        world_size=ws, grid_size=G, n_mixed=n_mixed,
-        l0_table=l0_table.astype(np.int32),
+        world_size=tree.world_size, grid_size=G, n_mixed=n_mixed,
+        l0_table=l0_table,
         brick_slot=slot_map,
         brick_attr=uni.astype(np.int32),
         occ_words=occ_words,
@@ -274,10 +285,7 @@ def brickify_patch(tree, scene: BrickScene, vmin, vmax,
     grows, exactly like the reference's tombstoned subtrees
     (Octree.java:954-956); a full :func:`brickify` reclaims.
     """
-    child = np.asarray(tree.child[:tree.n_nodes]).astype(np.int64)
-    mask = np.asarray(tree.mask[:tree.n_nodes]).astype(np.int64)
-    value = np.asarray(tree.value[:tree.n_nodes]).astype(np.int64)
-    normal = np.asarray(tree.normal[:tree.n_nodes]).astype(np.int64)
+    child, mask, value, normal = _host_tables(tree)
     G = scene.grid_size
     lo = np.clip(np.asarray(vmin) // brick, 0, G - 1)
     hi = np.clip(np.asarray(vmax) // brick, 0, G - 1)
@@ -346,8 +354,8 @@ def brickify_patch(tree, scene: BrickScene, vmin, vmax,
     scene.attrs[upd] = attrs_m.reshape(-1, 256, 128)
     scene.n_mixed = n_mixed2
     l0_occ = (((scene.brick_attr & 0xFF) != 0) | (scene.brick_slot >= 0))
-    scene.l0_table = np.asarray(brick_dda.table_rows(
-        brick_dda.pack_occupancy(l0_occ.reshape(G, G, G)))).astype(np.int32)
+    scene.l0_table = brick_dda.table_rows(
+        brick_dda.pack_occupancy(l0_occ.reshape(G, G, G)))
 
     return ScenePatch(cells=flat.astype(np.int32),
                       cell_slot=slot.astype(np.int32),

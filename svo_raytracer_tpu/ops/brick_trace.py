@@ -20,9 +20,9 @@ stale-mask normal quirk) match.  Fields that cannot match by design:
 accepted but ignored — this path always resolves to the finest leaf.
 
 This module is the *semantics* implementation (pure jnp, runs anywhere,
-oracle-checked by tests/test_brick_trace.py).  The production TPU path
-(ops/brick_pallas.py) runs the same phases as Pallas kernels with the
-occupancy working set in VMEM, binned by brick — see PERF_NOTES.md.
+oracle-checked by tests/test_brick_trace.py).  The production engine
+(ops/wavefront.py) runs the same phases per ray in one Pallas kernel and
+is checked against this module.
 """
 
 from __future__ import annotations
@@ -43,8 +43,9 @@ _EXIT_EPS = 1.0 / 1024.0
 
 
 def _clamp_dir(d):
-    # 1e-4, in lock-step with ops/wavefront._DIR_EPS (see the rationale
-    # there: 1e-12 lets near-axis rays livelock below the f32 ulp)
+    # 1e-4 keeps the minor-axis step above ulp(1024) = 6e-5: with
+    # |d| ~ 1e-8 a near-axis ray's per-step movement vanishes below the
+    # f32 ulp of a 1024-scale coordinate and the DDA never advances
     eps = f32(1e-4)
     return jnp.where(jnp.abs(d) < eps, jnp.where(d >= 0, eps, -eps), d)
 
@@ -57,8 +58,7 @@ def _march(pos, d, extent, cell, probe, max_steps, active):
     entry distance (along d, same units as pos) of the hit cell, or of the
     last crossing when not hit; ``inside`` reports whether the ray is
     still inside the grid (False => exited => definite miss beyond here).
-    Mirrors ops/brick_dda._dda_kernel; kept in plain jnp so it runs and
-    differentiates anywhere.
+    Plain jnp, so it runs and differentiates anywhere.
     """
     ox, oy, oz = pos
     dx, dy, dz = (_clamp_dir(c) for c in d)
@@ -144,9 +144,9 @@ def decode_hits(ws, origins, dirs, hit, attr, vx, vy, vz, t_vox, iters,
     traverse._decode (svotrace.comp:380-431).
 
     ``node``: brick engines have no node table, so the field defaults to
-    -1; the wavefront path passes its attr_comb index instead — a stable
-    per-voxel id the differentiable renderer (diff/wave_diff.py) keys
-    learnable parameters by.
+    -1; the production engine passes its attribute index instead — a
+    stable per-voxel id the differentiable renderer (diff/wave_diff.py)
+    keys learnable parameters by.
     """
     value = attr & 0xFF
     raw = (attr >> 8) & 0xFFFF
@@ -303,3 +303,16 @@ def intersect_bricks(scene, origins, dirs, max_depth=None, cone_trace=False,
         scene.occ_words.reshape(-1), scene.attrs.reshape(-1),
         origins, dirs, active, scene.world_size, scene.grid_size,
         scene.n_mixed, max_rounds)
+
+
+def intersect_scene(ws, origins, dirs, active=None, max_rounds=64):
+    """:func:`intersect_bricks` over a WaveScene's tables (ops/wavefront.py)
+    — the XLA reference the production kernel is checked and timed
+    against on the same device arrays."""
+    if active is None:
+        active = jnp.ones(origins.shape[0], bool)
+    base = ws.capacity * 32768
+    return _intersect_impl(
+        ws.l0, ws.brick_slot, ws.attrs[base:], ws.occ, ws.attrs, origins,
+        dirs, active.astype(bool), ws.world_size, ws.grid_size,
+        ws.capacity, max_rounds)

@@ -8,7 +8,7 @@ Two generators:
   statistical quality is poor (visible banding) — exactly like the reference.
 * :func:`threefry_uniform` — counter-based threefry via ``jax.random``, the
   default for our own rendering: decorrelated per (pixel, frame, bounce)
-  without any cross-frame state, which is the TPU-native way to do progressive
+  without any cross-frame state, which is the stateless way to do progressive
   accumulation (the reference left accumulation disabled,
   svotrace.comp:712-719).
 """

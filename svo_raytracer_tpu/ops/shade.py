@@ -314,13 +314,12 @@ def beam_prepass(tree_arrays, cam5, width, height, beam_tile=4,
 
 @functools.partial(jax.jit, static_argnames=(
     "width", "height", "render_mode", "gi_bounces", "use_beam", "beam_tile",
-    "max_iterations", "rng_mode", "mirror_values", "skip_grid_size"))
+    "max_iterations", "rng_mode", "mirror_values"))
 def render_image(tree_arrays, cam5, width, height, render_mode=2,
                  frame_number=1, gi_bounces=1, use_beam=False, beam_tile=4,
                  max_depth=C.MAX_DEPTH,
                  max_iterations=C.MAX_RAYCAST_ITERATIONS, rng_mode="glsl",
-                 rng_key=None, mirror_values=(), packed=None,
-                 skip_tab=None, skip_grid_size=32):
+                 rng_key=None, mirror_values=(), packed=None):
     """Full-frame render — the per-frame GPU work of Main.updateEarly
     (Main.java:257-288) as one jitted function.
 
@@ -336,14 +335,9 @@ def render_image(tree_arrays, cam5, width, height, render_mode=2,
     dirs = dirs_un / jnp.linalg.norm(dirs_un, axis=-1, keepdims=True)
     origins = jnp.broadcast_to(cam5[0], dirs.shape)
     isect = None
-    if packed is not None or skip_tab is not None:
+    if packed is not None:
         isect = functools.partial(traverse.intersect_octree, tree_arrays,
                                   packed=packed)
-    if skip_tab is not None:
-        from . import skip_grid as _sg
-
-        isect = _sg.make_skipping_isect(isect, skip_tab,
-                                        grid_size=skip_grid_size)
 
     beam = None
     if use_beam:
@@ -390,16 +384,15 @@ def render_frame_staged(tree_arrays, cam5, width, height, render_mode=2,
                         packed=None, row_block=None, round_steps=64,
                         inner_steps=traverse.INNER_STEPS, min_rows=32,
                         grow_rounds=False, max_round_steps=512,
-                        pipeline=False, skip_tab=None, skip_grid_size=32):
+                        pipeline=False):
     """Host-driven full-frame render using the compacting staged traversal
-    (traverse.intersect_octree_staged) — the production frame path on TPU.
+    (traverse.intersect_octree_staged).
 
     Differences from the fully-jitted :func:`render_image`:
       * each traversal runs as host-driven rounds with ray compaction, so
         the batch never pays max(iters) x all-lanes (the lock-step convoy);
-      * the frame is processed in ``row_block``-row slices, bounding gather
-        batch sizes (XLA:TPU gathers degrade past ~0.5M indices and full
-        1080p batches have faulted the device);
+      * the frame is processed in ``row_block``-row slices, bounding the
+        working set of each traversal batch;
       * the beam prepass (svobeam.comp) is ON by default — fine rays start
         at the coarse conservative hit like the reference's default path.
 
@@ -415,14 +408,6 @@ def render_frame_staged(tree_arrays, cam5, width, height, render_mode=2,
                               grow_rounds=grow_rounds,
                               max_round_steps=max_round_steps,
                               pipeline=pipeline)
-    if skip_tab is not None:
-        # per-ray VMEM DDA empty-space skip (ops/skip_grid.py): sky rays
-        # never enter the gather-bound ESVO walk, survivors start at the
-        # first occupied coarse cell
-        from . import skip_grid as _sg
-
-        isect = _sg.make_skipping_isect(isect, skip_tab,
-                                        grid_size=skip_grid_size)
     if row_block is None:
         row_block = max(1, min(height, (1 << 18) // width))
     while height % row_block:

@@ -3,7 +3,7 @@
 The reference's world is one monolithic ~2 GB arena on a single GPU
 (``src/engine/Constants.java:11``, ``src/engine/Main.java:122``); its only
 decomposition is the *build-time* chunk grid (``src/engine/Octree.java:237-250``).
-For worlds that outgrow one chip's HBM the TPU-native answer is to shard the
+For worlds that outgrow one device's memory the answer here is to shard the
 octree itself: cut the tree at octant level ``L`` into ``8**L`` *bricks*
 (standalone sub-octrees, each re-rooted to span the canonical [1,2]^3 cube),
 place them round-robin on a ``bricks`` mesh axis, and let every device
@@ -16,7 +16,7 @@ global first hit is simply the nearest per-brick hit —
 
     global_hit(ray) = argmin_{b : brick b hit} t_b(ray)
 
-— one ``pmin``/``psum`` combine over the ``bricks`` axis, riding ICI.  This
+— one ``pmin``/``psum`` combine over the ``bricks`` axis.  This
 replaces the reference's host<->device buffer traffic as the "communication
 backend" (SURVEY.md §2.2 last row) with XLA collectives.
 
@@ -283,7 +283,7 @@ def make_brick_intersect(brick_shard, corner_shard, orig_shard, level: int,
         if axis_name is None:
             return best
 
-        # --- cross-device nearest-hit combine (ICI collectives) ---
+        # --- cross-device nearest-hit combine (collectives) ---
         t_or_inf = jnp.where(best.hit, best.t, _INF)
         t_best = jax.lax.pmin(t_or_inf, axis_name)
         n_dev = jax.lax.axis_size(axis_name)

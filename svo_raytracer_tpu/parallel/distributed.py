@@ -1,12 +1,12 @@
 """Multi-host initialization and meshes.
 
-The reference has no distributed anything (SURVEY.md §2.2); the TPU-native
-story is ``jax.distributed`` + a host-spanning mesh.  On a pod slice each
-host calls :func:`init_distributed` once, builds the global ``tiles`` mesh,
-and the tile-sharded render/train fns in ``render_sharded.py`` work unchanged
-(they address devices through the mesh).  Octree replication happens at
-``to_device`` time via the mesh's replicated sharding; gradient psum rides
-ICI inside a slice and DCN across slices automatically.
+The reference has no distributed anything (SURVEY.md §2.2); the story here
+is ``jax.distributed`` + a host-spanning mesh.  With several hosts each
+process calls :func:`init_distributed` once, builds the global ``tiles``
+mesh, and the tile-sharded render/train fns in ``render_sharded.py`` work
+unchanged (they address devices through the mesh).  Octree replication
+happens at ``to_device`` time via the mesh's replicated sharding; XLA hands
+the gradient psum to the collective library (NCCL on GPUs).
 
 Single-host/virtual-device runs skip init entirely — tile_mesh over local
 devices — which is what the CI tests and the driver's dry run exercise.
@@ -23,7 +23,9 @@ def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> None:
     """Initialize jax.distributed (idempotent).  With no args, relies on the
-    TPU pod environment's auto-detection (megascale/tpu env vars)."""
+    cluster environment's auto-detection; where none exists (a single
+    multi-GPU host), pass ``coordinator_address`` (``localhost:<port>``),
+    ``num_processes`` and ``process_id``."""
     try:
         jax.distributed.initialize(coordinator_address=coordinator_address,
                                    num_processes=num_processes,

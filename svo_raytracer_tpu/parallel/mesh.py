@@ -5,11 +5,13 @@ map to a JAX device mesh here:
 
   ``tiles`` — image-row (ray-tile) data parallelism: every device traces its
   rows against a replicated octree; the analog of the 8x8 workgroup grid
-  writ large across chips.  Voxel-parameter gradients all-reduce over this
-  axis (ICI), overlapped with backward by XLA's collective scheduler.
+  writ large across devices.  Voxel-parameter gradients all-reduce over
+  this axis, overlapped with backward by XLA's collective scheduler.  The
+  mesh follows the algorithm only: every GPU of a host reaches every
+  other at the same NVLink rate.
 
-Octree brick sharding + halo exchange (for worlds larger than one chip's HBM)
-ride the same mesh on a second axis in a later stage.
+Octree brick sharding (parallel/bricks.py) rides the same mesh on a second
+``bricks`` axis.
 """
 
 from __future__ import annotations

@@ -2,14 +2,14 @@
 
 The image's rows are sharded over the ``tiles`` mesh axis; the octree node
 table and voxel parameters are replicated (octrees up to a few GB fit every
-chip — brick sharding with halo exchange is the follow-on for 8192^3 worlds).
+device — parallel/bricks.py shards the tree itself).
 Voxel-parameter gradients are ``psum``-reduced over ``tiles``; XLA schedules
 the all-reduce overlapped with the backward scatter chain (SURVEY.md §2.2
 last row, §5 "Distributed communication backend").
 
-This is the TPU-native replacement for the reference's only scaling story
-(more GL workgroups on one GPU): pjit/shard_map over a Mesh, collectives on
-ICI — not a port of any host-side code.
+This re-expresses the reference's only scaling story (more GL workgroups
+on one GPU) as shard_map over a Mesh with XLA collectives — not a port of
+any host-side code.
 """
 
 from __future__ import annotations

@@ -1,20 +1,12 @@
-"""Ray-tile-sharded rendering over the wavefront fast path.
+"""Ray-tile-sharded rendering over the production traversal.
 
 The ESVO sharded renderer (parallel/render_sharded.py) shards the jitted
-XLA traversal; this module shards the PRODUCTION engine — the
-static-schedule wavefront trace (ops/wavefront.py), which is a pure
-jittable function and therefore composes with ``shard_map`` directly:
-each device runs the whole Pallas round ladder on its own row block of
-the image, with the brick scene replicated.  This is the multi-chip
+XLA walk; this module shards the production engine
+(ops/wavefront.intersect), which is one jittable call and therefore
+composes with ``shard_map`` directly: each device renders its rows of
+the image, with the brick scene replicated.  This is the multi-device
 story for the reference's only scaling axis (more GL workgroups,
-Main.java:285) re-expressed as mesh parallelism on ICI.
-
-Schedules: round ladders are per-SHARD properties (a sky band retires in
-2 rounds, a ground band in 15), so :func:`discover_schedules` records a
-dynamic trace per shard and merges them into one conservative ladder
-(max round count, element-wise min halvings = least compaction), which
-every shard then replays.  A shard that outgrows the merged ladder
-surfaces in the psum'd ``n_left`` — re-discover then.
+Main.java:285) re-expressed as mesh parallelism.
 """
 
 from __future__ import annotations
@@ -25,8 +17,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..ops import render_wave, shade, wavefront
-from ..ops.wavefront import _resolve_caps, _trace_body
+from ..ops import render_wave, wavefront
 
 f32 = jnp.float32
 i32 = jnp.int32
@@ -40,18 +31,12 @@ def _row_offsets(mesh: Mesh, height: int):
     return offs, rows
 
 
-def _warrays(wscene):
-    return (wscene.l0_occ, wscene.l0_mixed, wscene.brick_slot,
-            wscene.occ_words, wscene.attr_comb, wscene.slot_cell,
-            wscene.sc_words, wscene.l0_sc)
-
-
 def _shard_rays(cam5, width, height, rows, row0, stride=1):
     """Rays for rows ``row0, row0+stride, ...`` (``rows`` of them).
     stride=1 is a contiguous band; stride=n_devices interleaves rows
     round-robin across shards — terrain frames divide into sky/ground
-    bands, so contiguous bands load-balance at ~0.73 on 8 shards while
-    interleaved rows average out (scripts/scaling_harness.py)."""
+    bands, which contiguous bands split unevenly while interleaved rows
+    average out (scripts/scaling_harness.py)."""
     ridx = row0.astype(f32) + jnp.arange(rows, dtype=f32) * f32(stride)
     l1, l2, r1, r2 = cam5[1], cam5[2], cam5[3], cam5[4]
     pxs = (jnp.arange(width, dtype=f32) + f32(0.5)) / f32(width)
@@ -67,143 +52,38 @@ def _shard_rays(cam5, width, height, rows, row0, stride=1):
     return origins, dirs, px, py
 
 
-def merge_schedules(schedules):
-    """Conservative union of per-shard ladders: max length, element-wise
-    min halvings (less compaction can only widen the working set)."""
-    L = max(len(s) for s in schedules)
-    out = []
-    for r in range(L):
-        out.append(min((s[r] if r < len(s) else 0) for s in schedules))
-    return tuple(out)
-
-
-def discover_schedules(wscene, cam5, width, height, mesh, render_mode=0,
-                       gi_bounces=1, interpret=None, extra=None,
-                       interleave=True):
-    """Record per-segment schedules by tracing each shard's row block
-    dynamically (host loop — one-time per scene/camera-class), merged
-    across shards.  Returns a tuple of per-segment schedules matching
-    render_wave._mode_tags order."""
-    n = mesh.shape["tiles"]
-    _, rows = _row_offsets(mesh, height)
-    cam5 = jnp.asarray(cam5, f32)
-    segs = render_wave._mode_tags(render_mode, gi_bounces)
-    per_seg = [[] for _ in segs]
-    for s in range(n):
-        row0 = jnp.asarray(s if interleave else s * rows, i32)
-        o, d, px, py = _shard_rays(cam5, width, height, rows, row0,
-                                   stride=n if interleave else 1)
-        if render_mode == 0:
-            accum, mask, depth, iters, active, r = render_wave._gi_init(
-                px, py, jnp.asarray(1, f32), d)
-            oo, dd = o, d
-            for seg in range(gi_bounces + 1):
-                prof = {}
-                # serve_local must match make_wave_sharded_render's trace
-                # (gi segments serve after the sort), else the recorded
-                # ladder lacks the sorted round the replay drains in
-                res = wavefront.intersect_wavefront(
-                    wscene, oo, dd, active=active, interpret=interpret,
-                    profile=prof, schedule_slack=2, extra=extra,
-                    serve_local=False)
-                per_seg[seg].append(prof["schedule"])
-                accum, mask, depth, iters, active, oo, dd = \
-                    render_wave._gi_update(seg == 0, (), accum, mask, depth,
-                                           iters, active, oo, dd, r, res)
-        else:
-            prof = {}
-            res = wavefront.intersect_wavefront(
-                wscene, o, d, interpret=interpret, profile=prof,
-                schedule_slack=2, extra=extra, serve_local=False)
-            per_seg[0].append(prof["schedule"])
-            if render_mode == 2:
-                so, sd, sa = render_wave._shadow_rays(res)
-                prof2 = {}
-                wavefront.intersect_wavefront(
-                    wscene, so, sd, active=sa, interpret=interpret,
-                    profile=prof2, schedule_slack=2, extra=extra,
-                    serve_local=False)
-                per_seg[1].append(prof2["schedule"])
-    return tuple(merge_schedules(s) for s in per_seg)
-
-
-def make_wave_sharded_render(mesh: Mesh, wscene, width: int, height: int,
-                             schedules, render_mode=0, gi_bounces=1,
-                             interpret=None, extra=0, min_tiles=2,
-                             interleave=True, serve=None, serve_width=None):
-    """Jitted ``render(warrays, cam5, frame_number) -> (col, n_left)``
-    with rows sharded over ``tiles`` and the wavefront engine per shard.
-    ``warrays`` = ``_warrays(wscene)`` (passed explicitly so updated
-    scenes can be re-rendered without re-closure)."""
+def make_wave_sharded_render(mesh: Mesh, width: int, height: int,
+                             render_mode=0, gi_bounces=1, interleave=True):
+    """Jitted ``render(wscene, cam5, frame_number) -> color (H,W,3)`` with
+    image rows sharded over ``tiles``.  ``interleave`` deals rows
+    round-robin (row d, d+n, ... to shard d) so sky and ground rows
+    spread evenly; otherwise each shard renders a contiguous band."""
     offs, rows = _row_offsets(mesh, height)
     n_sh = mesh.shape["tiles"]
     if interleave:
         offs = jnp.arange(n_sh, dtype=i32)
     stride = n_sh if interleave else 1
-    G, ws_sz = wscene.grid_size, wscene.world_size
-    cap = wscene.capacity
-    inner_cap, l0_cap = _resolve_caps(G)
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    if serve is None:
-        serve = wavefront.DEFAULT_SERVE
-    if serve_width is None:
-        serve_width = wavefront.DEFAULT_SERVE_WIDTH
-    B = rows * width
     rep = P()
 
-    def trace(o, d, act, warr, sched, serve_local=False):
-        return _trace_body(o, d, act, None, warr, tuple(sched), B, G, cap,
-                           ws_sz, cap, inner_cap, l0_cap, True, interpret,
-                           0, True, None, min_tiles, extra=extra,
-                           serve=serve, serve_width=serve_width,
-                           serve_local=serve_local,
-                           cloop=wavefront.DEFAULT_CLOOP)
-
     @functools.partial(
-        jax.shard_map, mesh=mesh,
-        in_specs=((rep,) * 8, rep, rep, P("tiles")),
-        out_specs=(P("tiles"), rep), check_vma=False)
-    def _render(warr, cam5, frame_number, row0):
+        jax.shard_map, mesh=mesh, in_specs=(rep, rep, rep, P("tiles")),
+        out_specs=P("tiles"), check_vma=False)
+    def _render(wscene, cam5, frame_number, row0):
         o, d, px, py = _shard_rays(cam5, width, height, rows, row0[0],
                                    stride=stride)
-        ones = jnp.ones(B, bool)
-        n_left = jnp.zeros((), i32)
-        if render_mode == 0:
-            accum, mask, depth, iters, active, r = render_wave._gi_init(
-                px, py, frame_number.astype(f32), d)
-            oo, dd = o, d
-            for seg in range(gi_bounces + 1):
-                res, nl = trace(oo, dd, active if seg else ones, warr,
-                                schedules[seg])
-                n_left = n_left + nl
-                accum, mask, depth, iters, active, oo, dd = \
-                    render_wave._gi_update(seg == 0, (), accum, mask, depth,
-                                           iters, active, oo, dd, r, res)
-            col = accum
-        elif render_mode == 2:
-            res, nl = trace(o, d, ones, warr, schedules[0])
-            so, sd, sa = render_wave._shadow_rays(res)
-            sh, nl2 = trace(so, sd, sa, warr, schedules[1])
-            n_left = nl + nl2
-            col, _, _ = shade.direct_shade_math(d, res, sh,
-                                                jnp.zeros_like(res.t))
-        else:
-            res, nl = trace(o, d, ones, warr, schedules[0])
-            n_left = nl
-            col = (render_wave._heat_post(res) if render_mode == 1
-                   else render_wave._norm_post(res))[0]
-        return (col.reshape(rows, width, 3),
-                jax.lax.psum(n_left, "tiles"))
+        col, _, _ = render_wave.shade_rays(
+            lambda o, d, a: wavefront.intersect(wscene, o, d, a), o, d, px,
+            py, frame_number, render_mode, gi_bounces)
+        return col.reshape(rows, width, 3)
 
     @jax.jit
-    def render(warr, cam5, frame_number=1):
-        col, n_left = _render(warr, jnp.asarray(cam5, f32),
-                              jnp.asarray(frame_number, f32), offs)
+    def render(wscene, cam5, frame_number=1):
+        col = _render(wscene, jnp.asarray(cam5, f32),
+                      jnp.asarray(frame_number, f32), offs)
         if interleave:
             # shard d produced rows d, d+n, ... -> restore image order
             col = (col.reshape(n_sh, rows, width, 3)
                    .transpose(1, 0, 2, 3).reshape(height, width, 3))
-        return col, n_left
+        return col
 
     return render

@@ -1,6 +1,6 @@
 """Engine constants and configuration.
 
-TPU-native re-expression of the reference's compile-time config
+A re-expression of the reference's compile-time config
 (``src/engine/Constants.java:4-32`` and the ``#define`` block in
 ``src/shaders/svotrace.comp:31-43``).  Unlike the reference, everything here is
 a runtime ``RenderConfig``/``WorldConfig`` so scenes, image sizes and traversal

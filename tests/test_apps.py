@@ -105,7 +105,7 @@ def test_viewer_beam_mode(tmp_path):
 
 @pytest.mark.slow
 def test_viewer_wavefront_accumulation_and_incremental_edit(tmp_path):
-    """VERDICT r1 item 7: scripted session shows (a) progressive mode-0
+    """A scripted session shows (a) progressive mode-0
     accumulation that resets on camera motion, (b) an SDF edit applied via
     brickify_patch/apply_patch — never a second full brickify."""
     from svo_raytracer_tpu.apps import viewer as viewer_mod
@@ -148,3 +148,12 @@ def test_viewer_wavefront_accumulation_and_incremental_edit(tmp_path):
     assert accs[:4] == [1, 2, 3, 1], accs
     # the edit ran through the incremental path and the scene stayed live
     assert v.wave_scene.n_mixed >= n_mixed_log[0][1]
+
+
+def test_viewer_auto_engine_rule():
+    """auto picks the production traversal wherever its attribute index
+    fits in int32, and the ESVO walk for worlds below one brick."""
+    from svo_raytracer_tpu.apps.viewer import _demo_tree, auto_engine
+
+    assert auto_engine(_demo_tree("sphere", 64)) == "wavefront"
+    assert auto_engine(_demo_tree("sphere", 16)) == "esvo"

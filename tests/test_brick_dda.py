@@ -1,21 +1,38 @@
-"""VMEM occupancy-grid DDA (ops/brick_dda.py) vs a scalar NumPy oracle.
-
-Runs the Pallas kernel in interpreter mode (CPU); on TPU the same kernel
-compiles through Mosaic (scripts/bench_pallas_prims.py measures it).
-"""
+"""The occupancy-grid DDA (brick_trace._march over ops/brick_dda words)
+vs a scalar NumPy oracle."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from svo_raytracer_tpu.ops import brick_dda
+from svo_raytracer_tpu.ops import brick_dda, brick_trace
+
+
+def coarse_dda(words, o, d, grid_size, active=None):
+    """One brick_trace._march over a z-packed (G,G,G) occupancy grid
+    with unit cells: {hit, t (entry distance), cell (B,3)}."""
+    G = grid_size
+    W = -(-G // 32)
+    flat = jnp.asarray(words).reshape(-1)
+
+    def probe(ix, iy, iz):
+        word = flat[(ix * G + iy) * W + (iz >> 5)]
+        return ((word >> (iz & 31)) & 1) != 0
+
+    o, d = jnp.asarray(o), jnp.asarray(d)
+    if active is None:
+        active = jnp.ones(o.shape[0], bool)
+    hit, ix, iy, iz, t, _inside, _steps = brick_trace._march(
+        (o[:, 0], o[:, 1], o[:, 2]), (d[:, 0], d[:, 1], d[:, 2]), G, 1,
+        probe, 3 * G, jnp.asarray(active))
+    return {"hit": hit, "t": t, "cell": jnp.stack([ix, iy, iz], -1)}
 
 
 def dda_oracle(vox, o, d, max_steps):
     """Scalar amanatides-woo DDA; returns (hit, t_entry, cell)."""
     G = vox.shape[0]
-    eps = 1e-4  # lock-step with the kernel's near-axis clamp (r2 fix)
+    eps = 1e-4  # lock-step with the march's near-axis clamp
     d = np.where(np.abs(d) < eps, np.where(d >= 0, eps, -eps), d)
     inv = 1.0 / d
     t1 = (0.0 - o) * inv
@@ -49,8 +66,7 @@ def dda_oracle(vox, o, d, max_steps):
 def test_coarse_dda_matches_oracle(G):
     rng = np.random.default_rng(G)
     vox = rng.random((G, G, G)) < 0.03
-    words = brick_dda.pack_occupancy(vox)
-    tab = brick_dda.table_rows(words)
+    tab = brick_dda.table_rows(brick_dda.pack_occupancy(vox))
 
     B = 256
     # half the rays start inside, half outside the grid
@@ -60,8 +76,7 @@ def test_coarse_dda_matches_oracle(G):
     d = rng.normal(size=(B, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
 
-    out = brick_dda.coarse_dda(tab, jnp.asarray(o), jnp.asarray(d),
-                               grid_size=G, interpret=True)
+    out = coarse_dda(tab, o, d, grid_size=G)
     hit = np.asarray(out["hit"])
     t = np.asarray(out["t"])
     cell = np.asarray(out["cell"])
@@ -71,7 +86,7 @@ def test_coarse_dda_matches_oracle(G):
         want_hit, want_t, want_cell = dda_oracle(vox, o[i].astype(np.float64),
                                                  d[i].astype(np.float64),
                                                  3 * G)
-        # float32 kernel vs float64 oracle: skip rays whose classification
+        # float32 march vs float64 oracle: skip rays whose classification
         # is borderline (grazing a cell corner) — exact-cell agreement is
         # required for the rest
         if want_hit != bool(hit[i]):
@@ -109,9 +124,7 @@ def test_active_mask_and_miss():
                  np.float32)
     d = np.array([[0, 0, 1.0], [0, 0, 1.0], [0, 0, 1.0]], np.float32)
     act = np.array([True, False, True])
-    out = brick_dda.coarse_dda(tab, jnp.asarray(o), jnp.asarray(d),
-                               grid_size=G, active=jnp.asarray(act),
-                               interpret=True)
+    out = coarse_dda(tab, o, d, grid_size=G, active=act)
     hit = np.asarray(out["hit"])
     assert hit[0] and not hit[1] and not hit[2]
     assert np.asarray(out["cell"])[0].tolist() == [8, 8, 8]
@@ -121,8 +134,8 @@ def test_active_mask_and_miss():
 
 def test_near_axis_direction_clamped():
     """Directions with a component inside the 1e-4 clamp window must hit
-    the same cells as the clamped oracle — pins the r2 livelock fix
-    (kernel and oracle both snap |d|<1e-4 components to +-1e-4)."""
+    the same cells as the clamped oracle — pins the near-axis livelock
+    fix (march and oracle both snap |d|<1e-4 components to +-1e-4)."""
     G = 32
     rng = np.random.default_rng(99)
     vox = rng.random((G, G, G)) < 0.05
@@ -135,8 +148,7 @@ def test_near_axis_direction_clamped():
     mag = rng.uniform(1e-8, 9e-5, B).astype(np.float32)
     d[np.arange(B), ax] = np.where(d[np.arange(B), ax] >= 0, mag, -mag)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    out = brick_dda.coarse_dda(tab, jnp.asarray(o), jnp.asarray(d),
-                               grid_size=G, interpret=True)
+    out = coarse_dda(tab, o, d, grid_size=G)
     hit = np.asarray(out["hit"])
     cell = np.asarray(out["cell"])
     n_agree = 0

@@ -10,7 +10,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from conftest import make_terrain_voxels
+from conftest import make_sphere_voxels, make_terrain_voxels
 from svo_raytracer_tpu.core import build_np, sdf
 from svo_raytracer_tpu.ops import brick_scene, wavefront
 from test_traverse_batch import random_rays
@@ -65,20 +65,44 @@ def test_apply_patch_device_render():
     tree = build_np.build_octree_np(vox)
     scene = brick_scene.brickify(tree)
     ws0 = wavefront.prepare(copy.deepcopy(scene))
+    shapes0 = [a.shape for a in (ws0.l0, ws0.brick_slot, ws0.occ, ws0.attrs)]
+    cap0 = ws0.capacity
 
     tree2, ball = _edit(tree, value=1, center=(32, 36, 32), radius=9)
     patch = brick_scene.brickify_patch(tree2, scene, ball.min, ball.max)
     ws1 = wavefront.apply_patch(ws0, scene, patch)
     ws_full = wavefront.prepare(brick_scene.brickify(tree2))
+    # capacity headroom: the patched scene keeps every shape (no recompile)
+    assert ws1.capacity == cap0 and ws1.n_mixed == patch.n_mixed
+    assert [a.shape for a in (ws1.l0, ws1.brick_slot, ws1.occ,
+                              ws1.attrs)] == shapes0
 
     o, d = random_rays(512, seed=3)
-    a = wavefront.intersect_wavefront(ws1, jnp.asarray(o), jnp.asarray(d),
-                                      interpret=True)
-    b = wavefront.intersect_wavefront(ws_full, jnp.asarray(o),
-                                      jnp.asarray(d), interpret=True)
+    a = wavefront.intersect(ws1, jnp.asarray(o), jnp.asarray(d))
+    b = wavefront.intersect(ws_full, jnp.asarray(o), jnp.asarray(d))
     np.testing.assert_array_equal(np.asarray(a.hit), np.asarray(b.hit))
     h = np.asarray(a.hit)
     np.testing.assert_array_equal(np.asarray(a.value)[h],
                                   np.asarray(b.value)[h])
     np.testing.assert_allclose(np.asarray(a.t)[h], np.asarray(b.t)[h],
                                atol=1e-5)
+
+
+def test_apply_patch_outgrowing_capacity_reprepares():
+    """A patch with more mixed bricks than the device capacity falls back
+    to a full prepare with new headroom."""
+    vox = make_sphere_voxels(128, radius=20)
+    tree = build_np.build_octree_np(vox)
+    scene = brick_scene.brickify(tree)
+    ws0 = wavefront.prepare(copy.deepcopy(scene), capacity=scene.n_mixed)
+    # a ball in the empty corner turns air bricks into mixed ones
+    tree2, ball = _edit(tree, value=1, center=(12, 12, 12), radius=6)
+    patch = brick_scene.brickify_patch(tree2, scene, ball.min, ball.max)
+    assert patch.n_mixed > ws0.capacity
+    ws1 = wavefront.apply_patch(ws0, scene, patch)
+    assert ws1.capacity >= patch.n_mixed
+    o, d = random_rays(256, seed=4)
+    a = wavefront.intersect(ws1, jnp.asarray(o), jnp.asarray(d))
+    b = wavefront.intersect(wavefront.prepare(brick_scene.brickify(tree2)),
+                            jnp.asarray(o), jnp.asarray(d))
+    np.testing.assert_array_equal(np.asarray(a.hit), np.asarray(b.hit))

@@ -112,3 +112,18 @@ def test_packed_table_semantics(scene):
             want_child = child[ci] if tag == 0 else 0
             assert packed[ci] >> 1 == want_child, (p, k, ci)
             assert (packed[ci] & 1) == int(value[ci] != 0)
+
+
+def test_png_writer_roundtrip(tmp_path):
+    """write_png needs only the standard library; Pillow reads it back."""
+    from PIL import Image
+
+    from svo_raytracer_tpu.io.image import write_png
+
+    rng = np.random.default_rng(0)
+    col = rng.uniform(0, 1, (5, 7, 3)).astype(np.float32)
+    path = str(tmp_path / "x.png")
+    write_png(path, col)
+    got = np.asarray(Image.open(path))
+    want = (np.clip(col, 0, 1) * 255).astype(np.uint8)[::-1]
+    np.testing.assert_array_equal(got, want)

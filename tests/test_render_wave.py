@@ -43,8 +43,7 @@ def test_modes_match_esvo():
                                              render_mode=mode,
                                              frame_number=3, gi_bounces=1)
         got_c, got_d, _ = render_wave.render_frame_wavefront(
-            ws, cam5, W, H, render_mode=mode, frame_number=3, gi_bounces=1,
-            interpret=True)
+            ws, cam5, W, H, render_mode=mode, frame_number=3, gi_bounces=1)
         fc = _frac_close(ref_c, got_c)
         assert fc >= 0.97, f"mode {mode}: color match {fc:.3f}"
         fd = (np.abs(np.asarray(ref_d) - np.asarray(got_d)) <= 2e-3).mean()
@@ -56,7 +55,7 @@ def test_heatmap_structure():
     ref_c, ref_d, ref_i = shade.render_image(tree.arrays(), cam5, W, H,
                                              render_mode=1)
     got_c, got_d, got_i = render_wave.render_frame_wavefront(
-        ws, cam5, W, H, render_mode=1, interpret=True)
+        ws, cam5, W, H, render_mode=1)
     # hits (depth > 0) must agree; iteration counts are engine-specific
     agree = ((np.asarray(ref_d) > 0) == (np.asarray(got_d) > 0)).mean()
     assert agree >= 0.99, f"hit structure {agree:.3f}"
@@ -71,28 +70,5 @@ def test_mirror_values():
                                      gi_bounces=1, mirror_values=(2,))
     got_c, _, _ = render_wave.render_frame_wavefront(
         ws, cam5, W, H, render_mode=0, frame_number=2, gi_bounces=1,
-        mirror_values=(2,), interpret=True)
+        mirror_values=(2,))
     assert _frac_close(ref_c, got_c) >= 0.97
-
-
-@pytest.mark.slow
-def test_schedule_persistence(tmp_path):
-    """save_schedules/load_schedules round-trip: a reloaded schedule
-    replays without re-recording (drives the bench.py cold-start path)."""
-    _, ws, cam5 = _setup()
-    render_wave._SCHED.clear()
-    col1, _, _ = render_wave.render_frame_wavefront(
-        ws, cam5, W, H, render_mode=0, frame_number=1, gi_bounces=1)
-    keys = set(render_wave._SCHED)
-    assert {k[3] for k in keys} == {"prim", "gi1"}  # (ws, nm, fp, tag, B)
-    path = str(tmp_path / "sched.json")
-    render_wave.save_schedules(path)
-    render_wave._SCHED.clear()
-    assert render_wave.load_schedules(path) == len(keys)
-    assert set(render_wave._SCHED) == keys
-    col2, _, _ = render_wave.render_frame_wavefront(
-        ws, cam5, W, H, render_mode=0, frame_number=1, gi_bounces=1)
-    assert set(render_wave._SCHED) == keys, "replay must not re-record"
-    np.testing.assert_allclose(np.asarray(col1), np.asarray(col2),
-                               atol=1e-5)
-    assert render_wave.load_schedules(str(tmp_path / "absent.json")) == 0

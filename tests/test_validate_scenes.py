@@ -57,7 +57,7 @@ def test_scene3_smoke():
 
 def test_scene5_brick_smoke():
     """scene_5 production path at 1/32 scale (256^3): direct BrickScene
-    build + wavefront probe agreement with the closed-form surface."""
+    build + traversal probe agreement with the closed-form surface."""
     import jax.numpy as jnp
 
     from svo_raytracer_tpu.ops import wavefront as wf
@@ -73,8 +73,7 @@ def test_scene5_brick_smoke():
     o = np.stack([1 + (vx + 0.5) / 256, np.full(64, 1.999),
                   1 + (vz + 0.5) / 256], 1).astype(np.float32)
     d = np.tile(np.asarray([[0.0, -1.0, 0.0]], np.float32), (64, 1))
-    r = wf.intersect_wavefront(W, jnp.asarray(o), jnp.asarray(d),
-                               interpret=True)
+    r = wf.intersect(W, jnp.asarray(o), jnp.asarray(d))
     t_exp = 1.999 - (1 + (h[vx, vz] + 1) / 256)
     ok = np.asarray(r.hit) & (np.abs(np.asarray(r.t) - t_exp) < 1e-3)
     assert ok.mean() >= 0.98, ok.mean()

@@ -1,7 +1,7 @@
-"""K-hit transmittance compositing on the wavefront engine: custom VJP
-vs plain autodiff, FD checks, and gradients THROUGH visibility (a front
-voxel's density modulates the gradient reaching the voxel it occludes —
-the r2 single-hit path could not express this)."""
+"""K-hit transmittance compositing on the production traversal: custom
+VJP vs plain autodiff, FD checks, and gradients THROUGH visibility (a
+front voxel's density modulates the gradient reaching the voxel it
+occludes — single-hit compositing cannot express this)."""
 
 import numpy as np
 import jax
@@ -14,7 +14,6 @@ from svo_raytracer_tpu.diff import wave_diff as wd
 from svo_raytracer_tpu.ops import brick_scene, wavefront
 from svo_raytracer_tpu.utils.camera import Camera
 
-pytestmark = pytest.mark.slow  # nightly tier (pytest.ini)
 
 
 def _two_wall_scene():
@@ -25,11 +24,6 @@ def _two_wall_scene():
     v[8:24, 8:24, 20] = 2   # back wall, material 2
     tree = build_np.build_octree_np(v)
     return wavefront.prepare(brick_scene.brickify(tree))
-
-
-def _warrays(ws):
-    return (ws.l0_occ, ws.l0_mixed, ws.brick_slot, ws.occ_words,
-            ws.attr_comb, ws.slot_cell, ws.sc_words, ws.l0_sc)
 
 
 def _center_rays(n=8):
@@ -44,11 +38,11 @@ def _center_rays(n=8):
 def walls():
     ws = _two_wall_scene()
     o, d = _center_rays()
-    chain = wd.khit_chain(_warrays(ws), o, d, 3, ws.grid_size,
-                          ws.world_size, ws.capacity, interpret=True)
+    chain = wd.khit_chain(ws, o, d, 3)
     return ws, o, d, chain
 
 
+@pytest.mark.slow
 def test_chain_sees_both_walls(walls):
     ws, o, d, chain = walls
     hitm = np.asarray(chain.hitm)
@@ -59,6 +53,7 @@ def test_chain_sees_both_walls(walls):
     assert (np.asarray(chain.aidx[0]) != np.asarray(chain.aidx[1])).all()
 
 
+@pytest.mark.slow
 def test_custom_vjp_matches_autodiff(walls):
     ws, o, d, chain = walls
     params = wd.init_params(ws)
@@ -88,6 +83,7 @@ def test_custom_vjp_matches_autodiff(walls):
                                          chain, bg)), atol=1e-6)
 
 
+@pytest.mark.slow
 def test_density_grad_matches_fd(walls):
     ws, o, d, chain = walls
     params = wd.init_params(ws, init_density=2.0)
@@ -106,6 +102,7 @@ def test_density_grad_matches_fd(walls):
     assert np.isclose(g[front], fd, rtol=5e-2, atol=1e-7), (g[front], fd)
 
 
+@pytest.mark.slow
 def test_gradient_flows_through_visibility(walls):
     """Raising the FRONT wall's density must shrink the gradient w.r.t.
     the BACK wall's parameters — occlusion is differentiable."""
@@ -143,6 +140,7 @@ def test_gradient_flows_through_visibility(walls):
     assert np.isclose(g[front], fd, rtol=5e-2, atol=1e-8)
 
 
+@pytest.mark.slow
 def test_wave_train_step_converges():
     ws = _two_wall_scene()
     # default camera faces -z: stand past the walls and look back
@@ -152,18 +150,18 @@ def test_wave_train_step_converges():
     params = wd.init_params(ws, init_density=4.0)
     # table-sized params + mean loss => per-entry grads are tiny; the
     # loss floor is the irreducible sky term on miss pixels
-    step = wd.make_wave_train_step(ws, W, H, K=2, lr=400.0, interpret=True)
+    step = wd.make_wave_train_step(W, H, K=2, lr=400.0)
     target = jnp.zeros((H, W, 3), jnp.float32)
-    warr = _warrays(ws)
     losses = []
     for _ in range(8):
-        params, loss = step(params, warr, cam5, target)
+        params, loss = step(params, ws, cam5, target)
         losses.append(float(loss))
     assert losses[-1] < losses[0] * 0.97, losses
     assert all(a >= b for a, b in zip(losses, losses[1:])), losses
     assert all(np.isfinite(losses))
 
 
+@pytest.mark.slow
 def test_wave_sharded_train_step():
     """Sharded (tiles mesh) wavefront training: psum'd grads, finite
     loss, and per-step agreement with the unsharded step."""
@@ -176,13 +174,44 @@ def test_wave_sharded_train_step():
     m = mesh_mod.tile_mesh(4)
     params = wd.init_params(ws, init_density=4.0)
     target = jnp.zeros((H, W, 3), jnp.float32)
-    warr = _warrays(ws)
-    step_sh = wd.make_wave_sharded_train_step(m, ws, W, H, K=2, lr=2.0,
-                                              interpret=True)
-    p_sh, loss_sh = step_sh(params, warr, cam5, target)
-    step_un = wd.make_wave_train_step(ws, W, H, K=2, lr=2.0, interpret=True)
-    p_un, loss_un = step_un(params, warr, cam5, target)
+    step_sh = wd.make_wave_sharded_train_step(m, W, H, K=2, lr=2.0)
+    p_sh, loss_sh = step_sh(params, ws, cam5, target)
+    step_un = wd.make_wave_train_step(W, H, K=2, lr=2.0)
+    p_un, loss_un = step_un(params, ws, cam5, target)
     assert np.isfinite(float(loss_sh))
     np.testing.assert_allclose(float(loss_sh), float(loss_un), rtol=1e-4)
     np.testing.assert_allclose(np.asarray(p_sh.density),
                                np.asarray(p_un.density), atol=1e-5)
+
+
+def test_train_step_grads_match_fd():
+    """The jitted train step's gradient (custom VJP through the K-hit
+    chain the kernel traces) agrees with central finite differences of
+    the same loss, at a size small enough for the fast tier."""
+    ws = _two_wall_scene()
+    o, d = _center_rays(4)
+    chain = wd.khit_chain(ws, o, d, 2)
+    hitm = np.asarray(chain.hitm)
+    assert hitm[0].all() and hitm[1].all()
+    params = wd.init_params(ws, init_density=1.0)
+    bg = wd.shade.sky(d)
+    target = jnp.full((o.shape[0], 3), 0.2, jnp.float32)
+
+    def loss(alb, den):
+        col = wd.composite_khit(alb, den, wd.khit_chain(ws, o, d, 2), bg)
+        return jnp.mean((col - target) ** 2)
+
+    ga, gd = jax.jit(jax.grad(loss, argnums=(0, 1)))(params.albedo,
+                                                     params.density)
+    aidx = np.asarray(chain.aidx)
+    eps = 1e-3
+    for k in (0, 1):
+        i = int(aidx[k, 1])
+        fd = (float(loss(params.albedo, params.density.at[i].add(eps)))
+              - float(loss(params.albedo, params.density.at[i].add(-eps)))
+              ) / (2 * eps)
+        assert np.isclose(float(gd[i]), fd, rtol=5e-2, atol=1e-7), (k, fd)
+        fa = (float(loss(params.albedo.at[i, 0].add(eps), params.density))
+              - float(loss(params.albedo.at[i, 0].add(-eps), params.density))
+              ) / (2 * eps)
+        assert np.isclose(float(ga[i, 0]), fa, rtol=5e-2, atol=1e-7), (k, fa)

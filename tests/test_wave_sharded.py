@@ -1,5 +1,6 @@
-"""Wavefront-engine sharded render (parallel/render_wave_sharded.py) vs
-the single-device frame renderer, on the virtual 8-device CPU mesh."""
+"""Sharded render over the production traversal
+(parallel/render_wave_sharded.py) vs the single-device frame renderer,
+on the virtual 8-device CPU mesh."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -30,16 +31,12 @@ def test_wave_sharded_matches_single(wscene_cam, mode, bounces):
     ws, cam5 = wscene_cam
     W, H = 32, 32
     m = mesh_mod.tile_mesh(8)
-    scheds = rws.discover_schedules(ws, cam5, W, H, m, render_mode=mode,
-                                    gi_bounces=bounces, interpret=True)
-    render = rws.make_wave_sharded_render(m, ws, W, H, scheds,
-                                          render_mode=mode,
-                                          gi_bounces=bounces, interpret=True)
-    col, n_left = render(rws._warrays(ws), cam5, 1)
-    assert int(n_left) == 0
+    render = rws.make_wave_sharded_render(m, W, H, render_mode=mode,
+                                          gi_bounces=bounces)
+    col = render(ws, cam5, 1)
     ref, _, _ = render_wave.render_frame_wavefront(
         ws, cam5, W, H, render_mode=mode, frame_number=1,
-        gi_bounces=bounces, interpret=True, use_static=False)
+        gi_bounces=bounces)
     a, b = np.asarray(col), np.asarray(ref)
     assert a.shape == b.shape
     # identical rays, identical engine — pixels must match to FP slop

@@ -1,38 +1,41 @@
-"""Wavefront-v2 Pallas path vs the XLA brick reference.
+"""The production traversal kernel (ops/wavefront.py) vs the XLA brick
+reference (ops/brick_trace.py).
 
-Runs in Pallas interpret mode on CPU (compiled-mode correctness is
-exercised on TPU by the .tpu_jobs regression gate).  The two paths share
-the scene format and decode, so fields should agree to FP slop; hit
-masks exact.
+On CPU the kernel runs in Pallas interpret mode (the Triton route's
+semantics, no card needed); ``gpu``-marked tests run it compiled on the
+card.  The two engines share the scene format and the decode, so fields
+agree to FP slop and hit masks agree.
 """
 
 import numpy as np
+import pytest
 
+import jax
 import jax.numpy as jnp
 
 from conftest import make_sphere_voxels, make_terrain_voxels
 from svo_raytracer_tpu.core import build_np
 from svo_raytracer_tpu.ops import brick_scene, brick_trace, wavefront
+from svo_raytracer_tpu.utils import compile_cache
 from test_traverse_batch import random_rays
-import pytest
 
 
 def _compare(tree, origins, dirs, min_hit_agree=0.995, min_strict=0.98,
-             **kw):
-    scene = brick_scene.brickify(tree).to_device()
+             active=None):
+    scene = brick_scene.brickify(tree)
     ws = wavefront.prepare(scene)
-    ref = brick_trace.intersect_bricks(scene, jnp.asarray(origins),
-                                       jnp.asarray(dirs))
-    got = wavefront.intersect_wavefront(ws, jnp.asarray(origins),
-                                        jnp.asarray(dirs), interpret=True,
-                                        **kw)
+    o, d = jnp.asarray(origins), jnp.asarray(dirs)
+    act = None if active is None else jnp.asarray(active)
+    ref = brick_trace.intersect_bricks(scene.to_device(), o, d, active=act)
+    got = wavefront.intersect(ws, o, d, act)
     ref = {k: np.asarray(v) for k, v in ref._asdict().items()}
     got = {k: np.asarray(v) for k, v in got._asdict().items()}
+    assert got["hit"].shape == (origins.shape[0],)
     agree = (ref["hit"] == got["hit"]).mean()
     assert agree >= min_hit_agree, f"hit agreement {agree}"
     both = ref["hit"] & got["hit"]
     if not both.any():
-        return
+        return ref, got
     strict = np.ones(origins.shape[0], bool)
     strict &= ~both | (ref["value"] == got["value"])
     strict &= ~both | (ref["depth"] == got["depth"])
@@ -41,6 +44,7 @@ def _compare(tree, origins, dirs, min_hit_agree=0.995, min_strict=0.98,
     frac = strict[both].mean()
     assert frac >= min_strict, (
         f"strict {frac:.3f}; bad {np.nonzero(both & ~strict)[0][:5]}")
+    return ref, got
 
 
 def test_sphere_64():
@@ -57,180 +61,169 @@ def test_terrain_64():
     _compare(tree, o, d)
 
 
-@pytest.mark.slow
-def test_terrain_64_no_early_exit():
-    vox = make_terrain_voxels(64, seed=3)
-    tree = build_np.build_octree_np(vox)
-    o, d = random_rays(128, seed=13)
-    _compare(tree, o, d, early_exit=False)
-
-
 def test_active_mask_and_nan():
     vox = make_sphere_voxels(64, radius=24)
     tree = build_np.build_octree_np(vox)
-    scene = brick_scene.brickify(tree).to_device()
-    ws = wavefront.prepare(scene)
+    ws = wavefront.prepare(brick_scene.brickify(tree))
     o = np.array([[0.5, 1.5, 1.5], [np.nan, 1.5, 1.5], [0.5, 1.5, 1.5]],
                  np.float32)
     d = np.tile(np.array([[1.0, 0.0, 0.0]], np.float32), (3, 1))
     act = jnp.asarray([True, True, False])
-    res = wavefront.intersect_wavefront(ws, jnp.asarray(o), jnp.asarray(d),
-                                        active=act, interpret=True)
+    res = wavefront.intersect(ws, jnp.asarray(o), jnp.asarray(d), act)
     hit = np.asarray(res.hit)
     assert hit[0] and not hit[1] and not hit[2]
+    assert int(res.node[1]) == -1 and int(res.node[2]) == -1
 
 
-@pytest.mark.slow
-def test_static_schedule_replay():
-    """A recorded schedule replayed as one jitted dispatch must agree
-    with the dynamic trace exactly (same kernels, same round count)."""
-    vox = make_terrain_voxels(64, seed=5)
-    tree = build_np.build_octree_np(vox)
-    scene = brick_scene.brickify(tree).to_device()
+def _near_axis_rays(n, seed):
+    """Rays with one direction component inside the 1e-4 clamp window."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(1.05, 1.95, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    ax = rng.integers(0, 3, n)
+    mag = rng.uniform(1e-8, 9e-5, n).astype(np.float32)
+    d[np.arange(n), ax] = np.where(d[np.arange(n), ax] >= 0, mag, -mag)
+    return o, d / np.linalg.norm(d, axis=1, keepdims=True)
+
+
+def _inside_solid_rays(n, seed):
+    """Origins inside the solid lower half of a terrain world."""
+    rng = np.random.default_rng(seed)
+    o = np.stack([rng.uniform(1.1, 1.9, n), rng.uniform(1.01, 1.15, n),
+                  rng.uniform(1.1, 1.9, n)], 1).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    return o, d / np.linalg.norm(d, axis=1, keepdims=True)
+
+
+CASES = {
+    # name: (voxel grid builder, ray builder)
+    "sphere64": (lambda: make_sphere_voxels(64, radius=24),
+                 lambda: random_rays(256, seed=31)),
+    "terrain64": (lambda: make_terrain_voxels(64, seed=3),
+                  lambda: random_rays(256, seed=32)),
+    "terrain128_g4": (lambda: make_terrain_voxels(128, seed=4),
+                      lambda: random_rays(256, seed=33)),
+    "all_uniform": (lambda: np.ones((64, 64, 64), np.uint8),
+                    lambda: random_rays(256, seed=34, inside_bias=0.0)),
+    "empty": (lambda: np.zeros((64, 64, 64), np.uint8),
+              lambda: random_rays(256, seed=35)),
+    "inside_solid": (lambda: make_terrain_voxels(64, seed=6),
+                     lambda: _inside_solid_rays(256, seed=36)),
+    "near_axis": (lambda: make_terrain_voxels(64, seed=8),
+                  lambda: _near_axis_rays(256, seed=37)),
+    "padded_batch": (lambda: make_sphere_voxels(64, radius=20),
+                     lambda: random_rays(wavefront.BLOCK + 3, seed=38)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_matches_brick_trace(case):
+    vox_fn, ray_fn = CASES[case]
+    tree = build_np.build_octree_np(vox_fn())
+    o, d = ray_fn()
+    ref, got = _compare(tree, o, d)
+    if case == "empty":
+        assert not got["hit"].any()
+    elif case == "all_uniform":
+        assert got["hit"].all()
+        # uniform bricks resolve at the brick grid: no voxel march steps
+        scene = brick_scene.brickify(tree)
+        assert scene.n_mixed == 0
+    else:
+        assert got["hit"].any()
+    # iteration counts are DDA steps in both engines
+    assert (ref["iters"] == got["iters"]).mean() >= 0.98
+
+
+def test_node_is_attribute_index():
+    """HitResult.node is the attrs index: mixed voxels at
+    slot*32768 + widx, uniform bricks at capacity*32768 + cell — the id
+    diff/wave_diff.py keys parameters by."""
+    v = np.full((64, 64, 64), 2, np.uint8)
+    v[40, 40, 40] = 0               # an air pocket: brick (1,1,1) mixed
+    tree = build_np.build_octree_np(v)
+    scene = brick_scene.brickify(tree)
     ws = wavefront.prepare(scene)
-    o, d = random_rays(2048, seed=21)
-    o, d = jnp.asarray(o), jnp.asarray(d)
-    prof = {}
-    ref = wavefront.intersect_wavefront(ws, o, d, interpret=True,
-                                        profile=prof, schedule_slack=2)
-    got, n_left = wavefront.intersect_wavefront(
-        ws, o, d, interpret=True, schedule=prof["schedule"])
-    assert int(n_left) == 0
-    for k in ("hit", "value", "t", "normal", "depth"):
-        a = np.asarray(getattr(ref, k))
-        b = np.asarray(getattr(got, k))
-        assert np.array_equal(a, b), k
+    G = ws.grid_size
+    assert scene.n_mixed == 1 and scene.brick_slot[0] < 0
+    c = 1 + 40.5 / 64
+    o = np.array([[1.25, 1.25, 0.5],   # -> uniform brick cell (0,0,0)
+                  [c, c, c],           # from the pocket -> voxel (40,40,41)
+                  [1.25, 1.25, 2.5]], np.float32)
+    d = np.array([[0.0, 0.0, 1.0], [0.0, 0.0, 1.0], [0.0, 0.0, 1.0]],
+                 np.float32)          # the third ray points away: miss
+    res = wavefront.intersect(ws, jnp.asarray(o), jnp.asarray(d))
+    node = np.asarray(res.node)
+    assert node[0] == ws.capacity * 32768 + 0
+    slot = int(scene.brick_slot[(1 * G + 1) * G + 1])
+    widx = (40 % 32) * 1024 + (40 % 32) * 32 + (41 % 32)
+    assert node[1] == slot * 32768 + widx
+    assert node[2] == -1
+    attrs = np.asarray(ws.attrs)
+    assert (attrs[node[:2]] & 0xFF).tolist() == [2, 2]
+    assert list(np.asarray(res.value)) == [2, 2, 0]
 
 
-@pytest.mark.slow
-def test_camera_mode_matches_explicit():
-    """Camera mode (5-operand sort, in-kernel ray derivation) must match
-    the explicit path bit-for-bit in interpret mode — the kernel mirrors
-    shade.pixel_dirs_rows op-for-op."""
-    from svo_raytracer_tpu.ops import shade
+def test_prepare_rejects_int32_attribute_index():
+    with pytest.raises(ValueError, match="int32"):
+        wavefront.check_index_range(70000, 256)   # the 8192^3 class
+    wavefront.check_index_range(65000, 32)        # fits
+
+
+@pytest.mark.parametrize("backend,expect", [("cpu", True), ("gpu", False),
+                                            ("metal", None)])
+def test_interpret_decision(monkeypatch, backend, expect):
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    if expect is None:
+        with pytest.raises(RuntimeError, match="no Pallas route"):
+            wavefront.use_interpret()
+    else:
+        assert wavefront.use_interpret() is expect
+
+
+def test_compile_cache_honours_env(monkeypatch):
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv(compile_cache.ENV, "/some/where")
+    assert compile_cache.enable() == "/some/where"
+    assert jax.config.jax_compilation_cache_dir == before  # untouched
+
+
+def test_compile_cache_default_in_checkout(monkeypatch):
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.delenv(compile_cache.ENV, raising=False)
+    try:
+        path = compile_cache.enable()
+        assert path == compile_cache.ROOT + "/.jax_cache"
+        assert jax.config.jax_compilation_cache_dir == path
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_render_frame_engines_agree():
+    """The whole frame through the kernel equals the frame through the
+    XLA reference (the seam chip_smoke.py times both ends with)."""
+    from svo_raytracer_tpu.ops import render_wave
     from svo_raytracer_tpu.utils.camera import Camera
 
-    vox = make_terrain_voxels(64, seed=9)
-    tree = build_np.build_octree_np(vox)
-    scene = brick_scene.brickify(tree).to_device()
-    ws = wavefront.prepare(scene)
-    cam = Camera(pos=np.array([1.4, 1.7, 1.3]))
-    cam.rotate(-0.5, 0.8)
+    tree = build_np.build_octree_np(make_terrain_voxels(64, seed=7))
+    ws = wavefront.prepare(brick_scene.brickify(tree))
+    cam = Camera(pos=np.array([1.3, 1.62, 1.3]))
+    cam.rotate(-0.5, 0.6)
     cam5 = jnp.asarray(cam.uniform(), jnp.float32)
-    W, H = 64, 32
-    dun = shade.pixel_dirs_device(cam5, W, H)
-    d = dun / jnp.linalg.norm(dun, axis=-1, keepdims=True)
-    o = jnp.broadcast_to(cam5[0], d.shape)
-    ref = wavefront.intersect_wavefront(ws, o, d, interpret=True)
-    got = wavefront.intersect_wavefront(ws, o, d, interpret=True,
-                                        camera=(cam5, W, H))
-    assert np.array_equal(np.asarray(ref.hit), np.asarray(got.hit))
-    both = np.asarray(ref.hit) & np.asarray(got.hit)
-    assert np.array_equal(np.asarray(ref.value)[both],
-                          np.asarray(got.value)[both])
-    assert np.allclose(np.asarray(ref.t)[both], np.asarray(got.t)[both],
-                       atol=1e-5)
-    # static replay composes with camera mode
-    prof = {}
-    _ = wavefront.intersect_wavefront(ws, o, d, interpret=True,
-                                      camera=(cam5, W, H), profile=prof,
-                                      schedule_slack=2)
-    got2, n_left = wavefront.intersect_wavefront(
-        ws, o, d, interpret=True, camera=(cam5, W, H),
-        schedule=prof["schedule"])
-    assert int(n_left) == 0
-    assert np.array_equal(np.asarray(got.hit), np.asarray(got2.hit))
-
-
-@pytest.mark.slow
-def test_extra_dynamic_continuation():
-    """extra>0 (in-kernel DMA continuation) must agree exactly with
-    extra=0 and converge in fewer sorted rounds (serve disabled so the
-    ladder actually exercises the per-round continuation)."""
-    vox = make_terrain_voxels(64, seed=7)
-    tree = build_np.build_octree_np(vox)
-    ws = wavefront.prepare(brick_scene.brickify(tree))
-    o, d = random_rays(2048, seed=5)
-    o, d = jnp.asarray(o), jnp.asarray(d)
-    p0, p2 = {}, {}
-    r0 = wavefront.intersect_wavefront(ws, o, d, interpret=True, extra=0,
-                                       profile=p0, serve=0)
-    r2 = wavefront.intersect_wavefront(ws, o, d, interpret=True, extra=2,
-                                       profile=p2, serve=0)
-    assert np.array_equal(np.asarray(r0.hit), np.asarray(r2.hit))
-    both = np.asarray(r0.hit)
-    assert np.allclose(np.asarray(r0.t)[both], np.asarray(r2.t)[both],
-                       atol=2e-4)
-    assert np.array_equal(np.asarray(r0.value)[both],
-                          np.asarray(r2.value)[both])
-    # with KMAX=8 the static candidates already cover a 64^3 world's
-    # entire G=2 grid, so extra can no longer SHORTEN the ladder — the
-    # contract kept here is exact agreement (the serve loop and the v4
-    # candidate-coverage loop supersede extra as the convergence
-    # mechanism; +-1 round of ladder-length noise is expected from the
-    # deferred active counts)
-    assert len(p2["schedule"]) <= len(p0["schedule"]) + 1
-    # static replay composes with extra
-    got, n_left = wavefront.intersect_wavefront(
-        ws, o, d, interpret=True, extra=2, serve=0, schedule=p2["schedule"])
-    assert int(n_left) == 0
-    assert np.array_equal(np.asarray(r2.hit), np.asarray(got.hit))
-
-
-def test_serve_loop_drains_incoherent_rays():
-    """The in-kernel serve loop must (a) agree exactly with the serve=0
-    ladder, and (b) drain incoherent random rays in the local round so
-    the recorded ladder is just the tail — the round-exhaustion failure
-    mode behind the r2 gate (hit_agree 0.784) cannot recur."""
-    vox = make_terrain_voxels(64, seed=7)
-    tree = build_np.build_octree_np(vox)
-    ws = wavefront.prepare(brick_scene.brickify(tree))
-    o, d = random_rays(2048, seed=5)
-    o, d = jnp.asarray(o), jnp.asarray(d)
-    p0, ps = {}, {}
-    r0 = wavefront.intersect_wavefront(ws, o, d, interpret=True, serve=0,
-                                       profile=p0)
-    rs_ = wavefront.intersect_wavefront(ws, o, d, interpret=True,
-                                        profile=ps)
-    assert np.array_equal(np.asarray(r0.hit), np.asarray(rs_.hit))
-    both = np.asarray(r0.hit)
-    assert np.allclose(np.asarray(r0.t)[both], np.asarray(rs_.t)[both],
-                       atol=2e-4)
-    assert np.array_equal(np.asarray(r0.value)[both],
-                          np.asarray(rs_.value)[both])
-    # serve drains everything by round 1L: no sorted rounds recorded
-    # (and no over-provision tail — serve absorbs per-frame variation)
-    assert ps["schedule"] == (), ps["schedule"]
-    # static replay of the trivial ladder strands nothing
-    got, n_left = wavefront.intersect_wavefront(
-        ws, o, d, interpret=True, schedule=ps["schedule"])
-    assert int(n_left) == 0
-    assert np.array_equal(np.asarray(rs_.hit), np.asarray(got.hit))
-
-
-@pytest.mark.slow
-def test_serve_loop_bound_punts_to_ladder():
-    """A tiny serve bound must not lose rays — lanes past the bound punt
-    to the sorted rounds and still resolve to the same hits."""
-    vox = make_terrain_voxels(64, seed=7)
-    tree = build_np.build_octree_np(vox)
-    ws = wavefront.prepare(brick_scene.brickify(tree))
-    o, d = random_rays(1024, seed=6)
-    o, d = jnp.asarray(o), jnp.asarray(d)
-    r0 = wavefront.intersect_wavefront(ws, o, d, interpret=True, serve=0)
-    r1 = wavefront.intersect_wavefront(ws, o, d, interpret=True, serve=2)
-    assert np.array_equal(np.asarray(r0.hit), np.asarray(r1.hit))
-    both = np.asarray(r0.hit)
-    assert np.allclose(np.asarray(r0.t)[both], np.asarray(r1.t)[both],
-                       atol=2e-4)
+    kw = dict(width=24, height=16, render_mode=0, gi_bounces=1)
+    a = render_wave.render_frame(ws, cam5, jnp.float32(2), **kw)
+    b = render_wave.render_frame(ws, cam5, jnp.float32(2),
+                                 intersect=brick_trace.intersect_scene, **kw)
+    for x, y in zip(a, b):
+        assert x.shape == y.shape
+        assert (np.abs(np.asarray(x) - np.asarray(y)) <= 1e-4).mean() >= 0.99
 
 
 @pytest.mark.slow
 def test_g64_world():
-    """G=64 (2048^3) support: two-word L0 columns + slot-based hit pack.
-    The scene is hand-built (a dense 2048^3 voxel grid is infeasible on
-    CPU); oracle = brick_trace, which is G-general."""
-    from svo_raytracer_tpu.ops.brick_dda import pack_occupancy
+    """G=64 (2048^3) support on a hand-built scene (a dense 2048^3 voxel
+    grid is infeasible on CPU); oracle = brick_trace, which is G-general."""
+    from svo_raytracer_tpu.ops.brick_dda import pack_occupancy, table_rows
 
     G, ws_sz = 64, 2048
     rs = np.random.RandomState(3)
@@ -257,17 +250,15 @@ def test_g64_world():
     for (ux, uy, uz) in ((4, 4, 40), (50, 50, 50)):
         occ3[ux, uy, uz] = True
         brick_attr[(ux * G + uy) * G + uz] = 1 + (559 << 8) + (6 << 24)
-    l0 = np.asarray(pack_occupancy(occ3))
     scene = brick_scene.BrickScene(
         world_size=ws_sz, grid_size=G, n_mixed=n_mixed,
-        l0_table=l0.reshape(-1, 128), brick_slot=brick_slot,
+        l0_table=table_rows(pack_occupancy(occ3)), brick_slot=brick_slot,
         brick_attr=brick_attr, occ_words=occ_words, attrs=attrs)
     ws = wavefront.prepare(scene)
     o, d = random_rays(256, seed=17)
     ref = brick_trace.intersect_bricks(scene.to_device(), jnp.asarray(o),
                                        jnp.asarray(d))
-    got = wavefront.intersect_wavefront(ws, jnp.asarray(o), jnp.asarray(d),
-                                        interpret=True)
+    got = wavefront.intersect(ws, jnp.asarray(o), jnp.asarray(d))
     rh, gh = np.asarray(ref.hit), np.asarray(got.hit)
     assert (rh == gh).mean() >= 0.99, (rh.sum(), gh.sum())
     both = rh & gh
@@ -278,21 +269,28 @@ def test_g64_world():
             <= 2e-4).mean() >= 0.98
 
 
-def test_profile_and_compaction():
-    vox = make_terrain_voxels(64, seed=5)
-    tree = build_np.build_octree_np(vox)
-    scene = brick_scene.brickify(tree).to_device()
-    ws = wavefront.prepare(scene)
-    o, d = random_rays(4096, seed=14)
-    prof = {}
-    res = wavefront.intersect_wavefront(ws, jnp.asarray(o), jnp.asarray(d),
-                                        interpret=True, profile=prof)
-    rounds = prof["rounds"]
-    assert rounds[0]["r"] == 0
-    # exact actives must be non-increasing over the sorted rounds and the
-    # working size must compact (round "1L" is the sort-free pixel round)
-    acts = [r["active"] for r in rounds if isinstance(r["r"], int)
-            and r["r"] >= 1]
-    assert all(a >= b for a, b in zip(acts, acts[1:])), acts
-    assert rounds[-1]["size"] <= rounds[1]["size"]
-    assert bool(np.asarray(res.hit).any())
+@pytest.mark.gpu
+def test_compiled_kernel_matches_brick_trace():
+    """The kernel compiled for the card (no interpret mode) vs the XLA
+    reference on the same card."""
+    tree = build_np.build_octree_np(make_terrain_voxels(128, seed=4))
+    o, d = random_rays(4096, seed=41)
+    _compare(tree, o, d)
+
+
+@pytest.mark.gpu
+def test_compiled_frame_matches_xla_frame():
+    from svo_raytracer_tpu.ops import render_wave
+    from svo_raytracer_tpu.utils.camera import Camera
+
+    tree = build_np.build_octree_np(make_terrain_voxels(128, seed=7))
+    ws = wavefront.prepare(brick_scene.brickify(tree))
+    cam = Camera(pos=np.array([1.3, 1.62, 1.3]))
+    cam.rotate(-0.5, 0.6)
+    cam5 = jnp.asarray(cam.uniform(), jnp.float32)
+    kw = dict(width=320, height=180, render_mode=2)
+    a = render_wave.render_frame(ws, cam5, jnp.float32(1), **kw)[1]
+    b = render_wave.render_frame(ws, cam5, jnp.float32(1),
+                                 intersect=brick_trace.intersect_scene,
+                                 **kw)[1]
+    assert (np.abs(np.asarray(a) - np.asarray(b)) <= 2e-3).mean() >= 0.99
